@@ -1,11 +1,23 @@
 """PyTorch + CUDA port of bask_tpu (fully-Bayesian Bayesian optimization).
 
 The JAX package ``bask_tpu`` is the reference; this package mirrors its
-module layout. Its two hand-written CUDA kernels (``csrc/``) build at
-first use on a CUDA tensor; on the CPU their plain PyTorch versions run.
+module layout. Its hand-written CUDA kernels (``csrc/``: the gram kernels
+K1 and K2, the base Cholesky K3) build at first use on a CUDA tensor; on
+the CPU their plain PyTorch versions run. Entry points place their
+tensors on the CUDA card unless the caller names another device.
 """
 
-from .acquisition import PVRS, ExpectedImprovement, evaluate_acquisitions_fused
+from .acquisition import (
+    LCB,
+    PVRS,
+    Expectation,
+    ExpectedImprovement,
+    MaxValueSearch,
+    ThompsonSampling,
+    TopTwoEI,
+    VarianceReduction,
+    evaluate_acquisitions_fused,
+)
 from .models.bayesgpr import BayesGPR
 from .optimizer import Optimizer
 from .space import Categorical, Integer, Real, Space
@@ -15,6 +27,12 @@ __all__ = [
     "BayesGPR",
     "Optimizer",
     "ExpectedImprovement",
+    "TopTwoEI",
+    "Expectation",
+    "LCB",
+    "MaxValueSearch",
+    "ThompsonSampling",
+    "VarianceReduction",
     "PVRS",
     "evaluate_acquisitions_fused",
     "Space",

@@ -36,8 +36,10 @@ def kernel_spec(kernel) -> bk.Kernel:
     raise NotImplementedError(f"kernel {name} is not ported")
 
 
-def gp_data(X, y, alpha_diag, mask, y_mean=0.0, y_std=1.0, device="cpu", dtype=torch.float64):
-    """Padded GPData arrays (NumPy) -> the port's :class:`GPData`."""
+def gp_data(X, y, alpha_diag, mask, y_mean=0.0, y_std=1.0, device=None, dtype=torch.float64):
+    """Padded GPData arrays (NumPy) -> the port's :class:`GPData`
+    (``device=None`` is the CUDA card)."""
+    device = torch.device("cuda" if device is None else device)
 
     def t(a):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -60,7 +62,9 @@ def fitted_bayesgpr(
     y_std=1.0,
     alpha=1e-10,
     noise_vector=None,
-    device="cpu",
+    warp_alphas=None,
+    warp_betas=None,
+    device=None,
     dtype=torch.float64,
     random_state=None,
 ) -> BayesGPR:
@@ -70,13 +74,16 @@ def fitted_bayesgpr(
     ``theta`` the consensus, ``chain``/``pos`` the flat chain and the
     final ensemble, ``X``/``y`` the unpadded raw data with its
     normalization ``y_mean``/``y_std``, and ``noise_vector`` the
-    per-point noise in normalized units (``gp._noise_vector``). The
-    consensus posterior and LML are recomputed by the port.
+    per-point noise in normalized units (``gp._noise_vector``). A warped
+    model (``warp_inputs=True``) also passes ``warp_alphas``/``warp_betas``
+    (``gp.warp_alphas_``/``gp.warp_betas_``); its chain and ensemble
+    carry the 2d warp columns. The consensus posterior and LML are
+    recomputed by the port, on ``device`` (``None``: the CUDA card).
     """
     spec = kernel_spec(kernel)
     gpr = BayesGPR(
         kernel=spec, alpha=alpha, noise=None, random_state=random_state,
-        device=device, dtype=dtype,
+        warp_inputs=warp_alphas is not None, device=device, dtype=dtype,
     )
     gpr._spec = spec
     gpr.y_train_mean_ = float(y_mean)
@@ -89,6 +96,7 @@ def fitted_bayesgpr(
     gpr.chain_ = np.array(chain, dtype=float)
     gpr.pos_ = np.array(pos, dtype=float)
     gpr.noise_ = None if noise is None else float(noise)
+    gpr.create_warpers(warp_alphas, warp_betas)
     gpr.theta = theta  # refreshes the consensus posterior and its LML
     gpr.log_marginal_likelihood_value_ = float(gpr._consensus_lml_)
     return gpr

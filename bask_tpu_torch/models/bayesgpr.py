@@ -9,12 +9,21 @@ the geometric median of the kept chain, and predictions from it.
 ``sample`` runs chain -> kept steps -> geometric median -> consensus
 factorization (3-rung jitter ladder) -> consensus LML, the sequence of
 the JAX package's fused sample program. The model lives on ``device`` in
-``dtype``; on a CUDA device in float32 the chain's grams and
-factorization bases run in the package's hand-written kernels.
+``dtype`` (the CUDA card unless the caller names another device); on a
+CUDA device in float32 the chain's grams and factorization bases run in
+the package's hand-written kernels.
 
-Not ported: input warping, row-sharded mode, pathwise draws, Laplace
-chain init, the on-device ML-II, ML-II subsampling, host-callback priors
-and serialization.
+``warp_inputs=True`` adds Beta-CDF input warping
+(:mod:`bask_tpu_torch.models.warping`): each chain row carries 2d warp
+log-parameters after the kernel theta, the log-probability warps the
+training inputs per walker (a (W, n_pad, d) X for the gram kernel's
+per-walker mode), and the consensus splits the geometric median into
+``theta``, ``warp_alphas_`` and ``warp_betas_``. ML-II fits theta alone
+at the identity warp, as in the JAX package.
+
+Not ported: row-sharded mode, pathwise draws, Laplace chain init, the
+on-device ML-II, ML-II subsampling, host-callback priors and
+serialization.
 """
 
 from __future__ import annotations
@@ -31,7 +40,9 @@ from ..ops.linalg import batched_lml, cho_solve_masked, masked_cholesky, masked_
 from ..parallel.mcmc import _MOVE_PARAMS, _normalize_moves, flatten_chain, run_ensemble
 from ..utils.median import geometric_median
 from ..utils.priors import guess_priors
+from ..utils.validation import validate_zeroone
 from . import gp as gpc
+from . import warping as wp
 
 __all__ = ["BayesGPR"]
 
@@ -77,13 +88,23 @@ def _eval_priors(priors, theta):
     return lp
 
 
-def _make_log_prob_batch(kernel, priors, data, n_real):
-    """Batched (W, D) -> (W,) log-posterior for the ensemble sampler."""
+def _make_log_prob_batch(kernel, priors, data, n_real, warp_prior=None, n_warp=0):
+    """Batched (W, D) -> (W,) log-posterior for the ensemble sampler.
+
+    With ``n_warp`` > 0 the last ``2 * n_warp`` entries of each row are
+    warp log-parameters: ``warp_prior(log_alphas, log_betas)`` scores them
+    ((W, d) each -> (W,)) and the training inputs are warped per walker."""
 
     def log_prob_batch(xs):
-        lp = _eval_priors(priors, xs)
+        if n_warp:
+            theta_gp, la, lb = wp.split_warp_params(xs, n_warp)
+            X = wp.warp(data.X, la, lb)
+            lp = warp_prior(la, lb)
+        else:
+            theta_gp, X, lp = xs, data.X, 0.0
+        lp = lp + _eval_priors(priors, theta_gp)
         lml = batched_lml(
-            kernel, xs, data.X, data.y, data.alpha_diag, data.mask, n_real=n_real
+            kernel, theta_gp, X, data.y, data.alpha_diag, data.mask, n_real=n_real
         )
         total = lp + lml
         return torch.where(torch.isfinite(total), total, -math.inf)
@@ -172,12 +193,14 @@ class BayesGPR:
 
     ``kernel`` is a spec from :mod:`bask_tpu_torch.ops.kernels`;
     ``alpha`` is the jitter on the gram's diagonal (floored at 1e-6 in
-    float32); ``noise="gaussian"`` appends a WhiteKernel at fit time.
-    ``fit`` always runs the ML-II warm start. ``moves``
+    float32); ``noise="gaussian"`` appends a WhiteKernel at fit time;
+    ``warp_inputs`` learns a Beta-CDF warp of each input dimension (inputs
+    in [0, 1]). ``fit`` always runs the ML-II warm start. ``moves``
     picks the ensemble moves (default ``"auto"``: demix at W >= 6).
     ``device`` and ``dtype`` place the training data, the chain and the
-    posterior. Host-side state (``theta``, ``chain_``, ``pos_``) is
-    NumPy, as in the JAX package.
+    posterior; ``device=None`` is the CUDA card. Host-side state
+    (``theta``, ``chain_``, ``pos_``, ``warp_alphas_``, ``warp_betas_``)
+    is NumPy, as in the JAX package.
     """
 
     def __init__(
@@ -186,8 +209,9 @@ class BayesGPR:
         alpha: float = 1e-10,
         random_state=None,
         noise: Optional[str] = "gaussian",
+        warp_inputs: bool = False,
         moves="auto",
-        device="cpu",
+        device=None,
         dtype=torch.float32,
     ):
         if kernel is None:
@@ -195,8 +219,9 @@ class BayesGPR:
         self._user_kernel = kernel
         self.alpha = alpha
         self.noise = noise
+        self.warp_inputs = warp_inputs
         self.moves = _canonical_moves(moves)
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
         self.dtype = dtype
         if isinstance(random_state, np.random.RandomState):
             self.random_state = random_state
@@ -209,9 +234,13 @@ class BayesGPR:
         self.pos_: Optional[np.ndarray] = None
         self.noise_: Optional[float] = None
         self.log_marginal_likelihood_value_: Optional[float] = None
+        self.warp_alphas_: Optional[np.ndarray] = None
+        self.warp_betas_: Optional[np.ndarray] = None
         self.until_rhat_result_ = None
         self._theta: Optional[np.ndarray] = None
         self._data: Optional[gpc.GPData] = None
+        # the posterior's data: _data with the consensus warp applied
+        self._post_data: Optional[gpc.GPData] = None
         self._post: Optional[gpc.GPPosterior] = None
         self._X_orig: Optional[np.ndarray] = None
         self._y_orig: Optional[np.ndarray] = None
@@ -233,6 +262,22 @@ class BayesGPR:
         if t is None or np.isnan(np.asarray(t, dtype=float)).any():
             return self._spec
         return self._spec.with_theta(np.asarray(t, dtype=float))
+
+    @property
+    def X_train_(self):
+        """Training inputs (warped if ``warp_inputs``), unpadded."""
+        if self._X_orig is None:
+            return None
+        return self.warp(self._X_orig)
+
+    @X_train_.setter
+    def X_train_(self, X_train):
+        """Replace the training inputs (original, unwarped space); the
+        warped view and the posterior are rederived."""
+        self._X_orig = np.array(X_train, dtype=float, ndmin=2)
+        if self._y_orig is not None:
+            self._upload()
+            self._refresh_posterior(with_lml=False)
 
     @property
     def theta(self):
@@ -300,12 +345,32 @@ class BayesGPR:
             y_std=self.y_train_std_,
         )
 
-    def _refresh_posterior(self):
+    def _n_warp(self) -> int:
+        return self._X_orig.shape[1] if self.warp_inputs else 0
+
+    def _warp_params(self):
+        """(log_alphas, log_betas) tensors of the consensus warp, or None."""
+        if not self.warp_inputs or self.warp_alphas_ is None:
+            return None
+        return self._tensor(self.warp_alphas_), self._tensor(self.warp_betas_)
+
+    def _warp_tensor(self, X):
+        """X (..., d) tensor in the consensus-warped space."""
+        params = self._warp_params()
+        return X if params is None else wp.warp(X, *params)
+
+    def _refresh_posterior(self, with_lml: bool = True):
+        """Consensus refresh: warp -> robust factorization -> LML."""
         if self._theta is None or self._data is None:
             return
-        self._post, self._consensus_lml_ = _consensus_body(
-            self._spec, self._tensor(self._theta), self._data
-        )
+        data = self._data._replace(X=self._warp_tensor(self._data.X))
+        theta = self._tensor(self._theta)
+        self._post_data = data
+        if with_lml:
+            self._post, self._consensus_lml_ = _consensus_body(self._spec, theta, data)
+        else:
+            self._post = _posterior_robust_body(theta, data, self._spec)
+            self._consensus_lml_ = None
 
     # -- ML-II warm start --------------------------------------------------
 
@@ -340,6 +405,22 @@ class BayesGPR:
             return self._priors_cache
         return priors if callable(priors) else tuple(priors)
 
+    @staticmethod
+    def _resolve_warp_priors(warp_priors):
+        """None: :func:`warping.default_warp_log_prior`; a pair of
+        elementwise log-priors (alphas, betas): summed over dimensions; a
+        callable of batched (W, d) log-alphas and log-betas -> (W,)."""
+        if warp_priors is None:
+            return wp.default_warp_log_prior
+        if isinstance(warp_priors, (tuple, list)):
+            a_prior, b_prior = warp_priors
+
+            def warp_prior(log_alphas, log_betas):
+                return a_prior(log_alphas).sum(-1) + b_prior(log_betas).sum(-1)
+
+            return warp_prior
+        return warp_priors
+
     @torch.no_grad()
     def sample(
         self,
@@ -351,6 +432,7 @@ class BayesGPR:
         n_thin: int = 1,
         n_walkers_per_thread: int = 100,
         priors=None,
+        warp_priors=None,
         position=None,
         add: bool = False,
         warn_rhat="default",
@@ -378,7 +460,7 @@ class BayesGPR:
         common = dict(
             n_thin=n_thin,
             n_walkers_per_thread=n_walkers_per_thread, priors=priors,
-            moves=moves, warn_rhat=None, **kwargs,
+            warp_priors=warp_priors, moves=moves, warn_rhat=None, **kwargs,
         )
         if until_rhat is not None:
             self.sample(
@@ -445,7 +527,9 @@ class BayesGPR:
             self._upload()
 
         priors = self._resolve_priors(priors)
-        n_dim = self._spec.n_theta
+        warp_prior = self._resolve_warp_priors(warp_priors)
+        n_warp = self._n_warp()
+        n_dim = self._spec.n_theta + 2 * n_warp
         n_walkers = max(2, n_walkers_per_thread + n_walkers_per_thread % 2)
         if position is not None:
             n_walkers = int(np.asarray(position).shape[0])
@@ -468,6 +552,8 @@ class BayesGPR:
             if bad.any():
                 usable = self.noise_ and np.isfinite(self.noise_) and self.noise_ > 0
                 theta[bad] = math.log(self.noise_) if usable else -10.0
+            # warp dimensions start at the identity warp, log a = log b = 0
+            theta = np.concatenate([theta, np.zeros(2 * n_warp)])
             pos = theta[None, :] + 1e-2 * self.random_state.randn(n_walkers, n_dim)
         seed = int(self.random_state.randint(0, 2**31 - 1))
 
@@ -477,7 +563,7 @@ class BayesGPR:
             moves = _MOVE_ALIASES["demix"] if w >= 6 else (("de", 1.0),) if w >= 4 else None
 
         log_prob = _make_log_prob_batch(
-            self._spec, priors, self._data, n_real=len(self._y_orig)
+            self._spec, priors, self._data, len(self._y_orig), warp_prior, n_warp
         )
         chain_dev, final = run_ensemble(
             log_prob, self._tensor(pos), seed, n_steps,
@@ -516,17 +602,20 @@ class BayesGPR:
         return self
 
     def _set_consensus_from_flat(self, flat):
-        """Geometric-median consensus, posterior refresh and consensus LML
-        over a flat (device) chain."""
-        theta_med = geometric_median(flat)
-        post, lml = _consensus_body(self._spec, theta_med, self._data)
-        self._theta = theta_med.cpu().double().numpy()
+        """Geometric-median consensus over a flat (device) chain: the
+        median splits into theta and the warp parameters, then the
+        posterior and the consensus LML are refreshed on the warped data."""
+        median = geometric_median(flat).cpu().double().numpy()
+        n_gp, n_warp = self._spec.n_theta, self._n_warp()
+        if n_warp:
+            self.warp_alphas_ = median[n_gp : n_gp + n_warp]
+            self.warp_betas_ = median[n_gp + n_warp :]
+        self._theta = median[:n_gp]
         widx = self.white_index_
         if widx is not None:
             self.noise_ = float(np.exp(self._theta[widx]))
-        self._post = post
-        self._consensus_lml_ = lml
-        self.log_marginal_likelihood_value_ = float(lml)
+        self._refresh_posterior()
+        self.log_marginal_likelihood_value_ = float(self._consensus_lml_)
         return self
 
     def fit(
@@ -538,10 +627,12 @@ class BayesGPR:
         n_burnin: int = 10,
         n_walkers_per_thread: int = 100,
         priors=None,
+        warp_priors=None,
         position=None,
         **kwargs,
     ):
-        """ML-II warm start, then hyperposterior sampling."""
+        """ML-II warm start (kernel theta at the identity warp), then
+        hyperposterior sampling."""
         if self.noise == "gaussian" and bk.white_theta_index(self._user_kernel) is None:
             self._spec = self._user_kernel + bk.WhiteKernel(1.0, (1e-5, 1e5))
         else:
@@ -558,6 +649,7 @@ class BayesGPR:
             n_burnin=n_burnin,
             n_walkers_per_thread=n_walkers_per_thread,
             priors=priors,
+            warp_priors=warp_priors,
             position=position,
             add=False,
             **kwargs,
@@ -571,11 +663,15 @@ class BayesGPR:
 
     @torch.no_grad()
     def predict(self, X, return_std: bool = False, return_cov: bool = False):
-        """Predictive mean (and std or covariance) of the consensus GP."""
+        """Predictive mean (and std or covariance) of the consensus GP;
+        with warping ``X`` (in [0, 1]) is warped by the consensus warp."""
         self._check_fitted()
+        X = np.atleast_2d(X)
+        if self.warp_inputs:
+            validate_zeroone(X)
         out = gpc.predict(
-            self._spec, self._tensor(self._theta), self._post, self._data,
-            self._tensor(np.atleast_2d(X)), return_std=return_std,
+            self._spec, self._tensor(self._theta), self._post, self._post_data,
+            self._warp_tensor(self._tensor(X)), return_std=return_std,
             return_cov=return_cov,
         )
         if return_std or return_cov:
@@ -604,7 +700,8 @@ class BayesGPR:
         random_state=0,
     ):
         """Function draws (n_points, n_samples): from the consensus GP with
-        ``sample_mean=True``, else one draw per random chain row."""
+        ``sample_mean=True``, else one draw per random chain row (each
+        with its own warp, when warping)."""
         self._check_fitted()
         seed = self._seed(random_state)
         Xq = self._tensor(np.atleast_2d(X))
@@ -613,13 +710,71 @@ class BayesGPR:
             theta = self._tensor(self._theta)
             td = theta if noise else gpc.noise_free_theta(self._spec, theta, widx)
             z = self._normals(seed, (Xq.shape[0], n_samples))
-            return gpc.sample_y(self._spec, td, self._post, self._data, Xq, z).cpu().numpy()
+            return gpc.sample_y(
+                self._spec, td, self._post, self._post_data, self._warp_tensor(Xq), z
+            ).cpu().numpy()
         rs = np.random.RandomState(seed)
         idx = rs.choice(len(self.chain_), size=n_samples, replace=True)
-        rows = self._tensor(self.chain_[idx])
-        grams = gpc.fused_marginal_grams(self._spec, rows, self._data, len(self._y_orig))
-        post, invs = gpc.posterior_and_invs(self._spec, rows, self._data, Kp=grams)
+        rows, data, Xq = gpc.warped_draws(
+            self._tensor(self.chain_[idx]), self._data, self._n_warp(), Xq
+        )
+        grams = gpc.fused_marginal_grams(self._spec, rows, data, n_real=len(self._y_orig))
+        post, invs = gpc.posterior_and_invs(self._spec, rows, data, Kp=grams)
         td = rows if noise else gpc.noise_free_theta(self._spec, rows, widx)
-        z = self._normals(seed, (n_samples, Xq.shape[0], 1))
-        draws = gpc.sample_y(self._spec, td, post, self._data, Xq, z, invs=invs)
+        z = self._normals(seed, (n_samples, Xq.shape[-2], 1))
+        draws = gpc.sample_y(self._spec, td, post, data, Xq, z, invs=invs)
         return draws[..., 0].T.cpu().numpy()
+
+    # -- public warper API (reference bask/bayesgpr.py:249-316) ------------
+
+    def create_warpers(self, alphas, betas):
+        """Set the warp log-parameters (call :meth:`rewarp` afterwards)."""
+        if not self.warp_inputs:
+            return
+        self.warp_alphas_ = np.array(alphas, dtype=float)
+        self.warp_betas_ = np.array(betas, dtype=float)
+
+    def rewarp(self):
+        """Re-warp the training data after the warp parameters changed and
+        refresh the factorized posterior."""
+        if self.warp_inputs and self.warp_alphas_ is not None:
+            self._refresh_posterior(with_lml=False)
+
+    @property
+    def warpers_(self):
+        """Per-column warp callables (scipy Beta CDFs), reference-compatible."""
+        if not self.warp_inputs or self.warp_alphas_ is None:
+            return None
+        import scipy.stats as st
+
+        return [
+            st.beta(a=np.exp(a), b=np.exp(b)).cdf
+            for a, b in zip(self.warp_alphas_, self.warp_betas_)
+        ]
+
+    @property
+    def unwarpers_(self):
+        """Per-column unwarp callables (scipy Beta PPFs), reference-compatible."""
+        if not self.warp_inputs or self.warp_alphas_ is None:
+            return None
+        import scipy.stats as st
+
+        return [
+            st.beta(a=np.exp(a), b=np.exp(b)).ppf
+            for a, b in zip(self.warp_alphas_, self.warp_betas_)
+        ]
+
+    def warp(self, X):
+        """X (n, d) in the consensus-warped space (NumPy in, NumPy out);
+        X itself without warping."""
+        params = self._warp_params()
+        if params is None:
+            return X
+        return wp.warp(self._tensor(X), *params).cpu().double().numpy()
+
+    def unwarp(self, X):
+        """The inverse of :meth:`warp`."""
+        params = self._warp_params()
+        if params is None:
+            return X
+        return wp.unwarp(self._tensor(X), *params).cpu().double().numpy()

@@ -23,6 +23,7 @@ __all__ = [
     "make_data",
     "posterior",
     "posterior_and_invs",
+    "warped_draws",
     "fused_marginal_grams",
     "log_marginal_likelihood",
     "predict",
@@ -71,11 +72,27 @@ def posterior(kernel, theta, data: GPData) -> GPPosterior:
     return GPPosterior(theta=theta, L=L, alpha_dual=cho_solve_masked(L, yb))
 
 
+def warped_draws(rows, data: GPData, n_warp: int, Xq=None):
+    """Split hyperposterior rows (S, D) into kernel thetas, per-draw data
+    and per-draw queries: with warping (``n_warp`` > 0) each row's warp
+    parameters warp the training inputs to ``data.X`` (S, n_pad, d) and
+    the queries ``Xq`` (m, d) to (S, m, d). Returns (theta, data, Xq)."""
+    if not n_warp:
+        return rows, data, Xq
+    from .warping import split_warp_params, warp
+
+    theta_gp, la, lb = split_warp_params(rows, n_warp)
+    Xq = None if Xq is None else warp(Xq, la, lb)
+    return theta_gp, data._replace(X=warp(data.X, la, lb)), Xq
+
+
 def fused_marginal_grams(kernel, rows, data: GPData, n_real: Optional[int] = None):
     """(S, n_pad, n_pad) masked grams for a batch of hyperposterior rows
     from one launch of the K1 gram kernel, or ``None`` where K1 does not
-    apply (:func:`bask_tpu_torch.ops.gram.fused_spec_for`). Assumes the
-    prefix-mask padding convention (real points first)."""
+    apply (:func:`bask_tpu_torch.ops.gram.fused_spec_for`). ``rows`` are
+    kernel thetas; with warping, ``data`` comes from :func:`warped_draws`
+    and its per-draw X (S, n_pad, d) feeds K1's per-walker mode. Assumes
+    the prefix-mask padding convention (real points first)."""
     spec = fused_spec_for(kernel, data.X)
     if spec is None:
         return None

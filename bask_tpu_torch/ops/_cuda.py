@@ -35,6 +35,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # packed, X, x_walker_stride, alpha, n_real, B, n_pad, d, nu_code, out, stream
     "bask_gram_f32": [_P, _P, ctypes.c_longlong, _P, _I, _I, _I, _I, _I, _P, _P],
+    # the same arguments; n_pad a multiple of 128
+    "bask_gram_lower_f32": [_P, _P, ctypes.c_longlong, _P, _I, _I, _I, _I, _I, _P, _P],
     # A, L, Linv, batch, m, stream
     "bask_chol_inv_f32": [_P, _P, _P, _I, _I, _P],
 }

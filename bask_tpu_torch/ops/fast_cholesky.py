@@ -14,6 +14,25 @@ The GEMMs around the base are ``torch.matmul`` at full f32 (the package
 never enables TF32). A non-PD input surfaces as NaN in a base factor and
 propagates through every downstream matmul, so a failed factorization
 gives a NaN (then -inf) log-likelihood without a branch.
+
+Lower-only contract: everything here reads only the lower triangle of
+``A`` at the granularity of 128 x 128 tiles, so a gram whose strictly
+upper 128-tiles are zeros (kernel K2, ``ops.gram.LOWER_GRAM``) gives
+bit-identical results to the full gram. It holds because
+
+* the recursion splits at ``h = n // 2`` and reads ``A[:h, :h]``,
+  ``A[h:, :h]`` and ``A[h:, h:]``, never ``A[:h, h:]``; a base block
+  (<= 32) lies inside one diagonal 128-tile, which K2 computes in full,
+  and K3 (and its plain version) reads ``M[r][j]`` only for ``r >= j``;
+* the panels of :func:`pick_nb` are 128 or 256 wide and start on
+  128-multiples, so a strictly upper 128-tile is only ever in the upper
+  part of a trailing block or of a 256 panel, which the recursion does
+  not read;
+* the solves read ``L``, which is built from lower blocks only.
+
+A panel or split that is not a multiple of 128 would read a zeroed tile.
+``tests/test_torch_gram.py`` holds the LML from a K2 gram bit-equal to
+the LML from a K1 gram at n_pad 128, 512 and 640 (256/256/128 panels).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Fused masked Matern/RBF gram for a batch of walkers (kernel K1).
+"""Fused masked Matern/RBF gram for a batch of walkers (kernels K1, K2).
 
 Replaces the TPU kernel ``bask_tpu/ops/pallas_gram.py::
 fused_masked_gram_batch`` (math in ``_tile_values``, packing in
@@ -15,13 +15,27 @@ On a CUDA tensor :func:`fused_masked_gram_batch` launches the
 hand-written kernel ``csrc/gram.cu``; on a CPU tensor it runs
 :func:`fused_masked_gram_plain`, a torch transcription of the same math.
 
+K2, :func:`fused_masked_gram_lower_batch`, replaces
+``pallas_gram.py::fused_masked_gram_lower_batch``: K1's values in every
+128 x 128 tile on or below the diagonal, exact zeros in every strictly
+upper 128-tile, which it never computes. Its only consumer is a
+factorization that reads the lower triangle (see
+:mod:`bask_tpu_torch.ops.fast_cholesky`). It is the same CUDA kernel with
+its ``lower`` template flag set, so the entries it computes are
+bit-identical to K1's. The chain uses it when :data:`LOWER_GRAM` is
+``"on"`` and ``n_pad`` is a multiple of :data:`_SQ_TILE`
+(``ops.linalg._lml_batch_direct``); the default is ``"off"``, as in the
+JAX package.
+
 What bounds the kernel on an H100: the output write. At the chain's shape
 (50, 512, 512) f32 that is 52 MB, about 16 us at 3.35 TB/s, against
 about 2d + 20 flops per entry. So the kernel keeps every intermediate
 (scaled rows, norms, distances) in shared memory and registers, and each
 warp stores whole 128-byte row segments. One block computes a 64 x 64
 tile of one walker's gram with plain FP32 FMAs (no TF32), looping over
-``d`` in 32-wide chunks so any input width works.
+``d`` in 32-wide chunks so any input width works. K2 writes the same
+bytes (its zeros are stored, as on the TPU) and computes only the lower
+128-tiles, 10 of 16 at n_pad = 512: the same write bound.
 """
 
 from __future__ import annotations
@@ -40,9 +54,15 @@ __all__ = [
     "fused_spec_for",
     "fused_masked_gram_batch",
     "fused_masked_gram_plain",
+    "fused_masked_gram_lower_batch",
+    "fused_masked_gram_lower_plain",
+    "LOWER_GRAM",
 ]
 
 _TILE = 64  # the kernel's output tile; n_pad must be a multiple
+# K2 for the chain's grams: "on" or "off" (the JAX package's default)
+LOWER_GRAM = "off"
+_SQ_TILE = 128  # K2's zero pattern follows 128-tiles; n_pad must be a multiple
 _NU_CODE = {0.5: 0, 1.5: 1, 2.5: 2, math.inf: 3}
 
 
@@ -135,6 +155,22 @@ def fused_masked_gram_plain(spec: FusedSpec, thetas, X, alpha_diag, n_real):
     return torch.where(eye, torch.diag_embed(diag), K)
 
 
+def _upper_tiles(n_pad: int, device):
+    """(n_pad, n_pad) bool: True in the strictly upper 128-tiles."""
+    t = torch.arange(n_pad, device=device) // _SQ_TILE
+    return t[None, :] > t[:, None]
+
+
+def fused_masked_gram_lower_plain(spec: FusedSpec, thetas, X, alpha_diag, n_real):
+    """Plain PyTorch version of K2: :func:`fused_masked_gram_plain` with
+    the strictly upper 128-tiles set to 0."""
+    n_pad = X.shape[-2]
+    if n_pad % _SQ_TILE:
+        raise ValueError(f"n_pad={n_pad} is not a multiple of {_SQ_TILE}")
+    K = fused_masked_gram_plain(spec, thetas, X, alpha_diag, n_real)
+    return torch.where(_upper_tiles(n_pad, X.device), 0.0, K)
+
+
 def fused_masked_gram_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real: int):
     """Masked grams for a batch of walkers: (B, n_pad, n_pad) float32.
 
@@ -148,6 +184,34 @@ def fused_masked_gram_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real: int)
     """
     if not X.is_cuda:
         return fused_masked_gram_plain(spec, thetas, X, alpha_diag, n_real)
+    out = _launch("bask_gram_f32", _TILE, spec, thetas, X, alpha_diag, n_real)
+    fused_masked_gram_batch.launches += 1
+    return out
+
+
+fused_masked_gram_batch.launches = 0
+
+
+def fused_masked_gram_lower_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real: int):
+    """K2: the lower 128-tiles of :func:`fused_masked_gram_batch`, zeros
+    above; the same arguments, with ``n_pad`` a multiple of 128.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the
+    kernel (and raises if it cannot).
+    """
+    if not X.is_cuda:
+        return fused_masked_gram_lower_plain(spec, thetas, X, alpha_diag, n_real)
+    out = _launch("bask_gram_lower_f32", _SQ_TILE, spec, thetas, X, alpha_diag, n_real)
+    fused_masked_gram_lower_batch.launches += 1
+    return out
+
+
+fused_masked_gram_lower_batch.launches = 0
+
+
+def _launch(entry: str, multiple: int, spec, thetas, X, alpha_diag, n_real):
+    """Check the arguments, then launch the C entry point ``entry`` of
+    ``csrc/gram.cu`` on the current stream."""
     from ._cuda import check, library
 
     B = thetas.shape[0]
@@ -156,8 +220,8 @@ def fused_masked_gram_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real: int)
         raise TypeError("gram kernel takes float32 X and alpha_diag")
     if X.ndim not in (2, 3) or (X.ndim == 3 and X.shape[0] != B):
         raise ValueError(f"X must be (n_pad, d) or ({B}, n_pad, d), got {tuple(X.shape)}")
-    if n_pad % _TILE:
-        raise ValueError(f"n_pad={n_pad} is not a multiple of {_TILE}")
+    if n_pad % multiple:
+        raise ValueError(f"n_pad={n_pad} is not a multiple of {multiple}")
     if alpha_diag.shape != (n_pad,):
         raise ValueError(f"alpha_diag must be ({n_pad},), got {tuple(alpha_diag.shape)}")
     if thetas.device != X.device or alpha_diag.device != X.device:
@@ -178,7 +242,7 @@ def fused_masked_gram_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real: int)
     out = torch.empty((B, n_pad, n_pad), dtype=torch.float32, device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
     check(
-        library().bask_gram_f32(
+        getattr(library(), entry)(
             packed.data_ptr(),
             X.data_ptr(),
             ctypes.c_longlong(n_pad * d if X.ndim == 3 else 0),
@@ -191,10 +255,6 @@ def fused_masked_gram_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real: int)
             out.data_ptr(),
             stream,
         ),
-        "bask_gram_f32",
+        entry,
     )
-    fused_masked_gram_batch.launches += 1
     return out
-
-
-fused_masked_gram_batch.launches = 0

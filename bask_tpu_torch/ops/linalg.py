@@ -19,7 +19,8 @@ import math
 
 import torch
 
-from .gram import fused_masked_gram_batch, fused_spec_for
+from . import gram
+from .gram import fused_spec_for
 
 __all__ = [
     "masked_gram",
@@ -110,7 +111,12 @@ def _lml_chunk_walkers(n_pad: int, itemsize: int, W: int) -> int:
 
 def _lml_batch_direct(kernel, spec, thetas, X, y, alpha_diag, mask, n_real):
     if spec is not None:
-        Kp = fused_masked_gram_batch(spec, thetas, X, alpha_diag, n_real)
+        # the factorization reads only the lower triangle, so K2 may skip
+        # the upper 128-tiles (gram.LOWER_GRAM; off by default, as in JAX)
+        if gram.LOWER_GRAM == "on" and X.shape[-2] % gram._SQ_TILE == 0:
+            Kp = gram.fused_masked_gram_lower_batch(spec, thetas, X, alpha_diag, n_real)
+        else:
+            Kp = gram.fused_masked_gram_batch(spec, thetas, X, alpha_diag, n_real)
         return batched_lml_from_gram(Kp, y, mask)
     return masked_lml(kernel, thetas, X, y, alpha_diag, mask)
 
@@ -119,8 +125,9 @@ def batched_lml(kernel, thetas, X, y, alpha_diag, mask, n_real=None):
     """LML for a batch of thetas: (W, n_theta) -> (W,).
 
     On a CUDA float32 problem whose kernel matches the fused family and
-    whose bucket is a 64-multiple, the grams come from the K1 kernel and
-    the factorization from the blocked Cholesky with K3 bases. Otherwise
+    whose bucket is a 64-multiple, the grams come from the K1 kernel (K2
+    when ``gram.LOWER_GRAM == "on"`` and the bucket is a 128-multiple)
+    and the factorization from the blocked Cholesky with K3 bases. Otherwise
     the grams are built by the kernel spec. ``X`` is (n_pad, d) or
     per-walker (W, n_pad, d). ``n_real`` (the number of unpadded points,
     an int) saves a device sync when the caller knows it.

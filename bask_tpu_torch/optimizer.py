@@ -32,7 +32,13 @@ __all__ = ["Optimizer", "ACQUISITION_FUNC"]
 
 ACQUISITION_FUNC = {
     "ei": acq_mod.ExpectedImprovement(),
+    "lcb": acq_mod.LCB(),
+    "mean": acq_mod.Expectation(),
+    "mes": acq_mod.MaxValueSearch(),
     "pvrs": acq_mod.PVRS(),
+    "ts": acq_mod.ThompsonSampling(),
+    "ttei": acq_mod.TopTwoEI(),
+    "vr": acq_mod.VarianceReduction(),
 }
 
 
@@ -50,10 +56,12 @@ class Optimizer:
     ``dimensions`` (tuples / category lists / Dimension objects),
     ``n_points`` candidate-grid size, ``n_initial_points`` with
     ``init_strategy`` in {"sb", "r2", "random"}, ``gp_kernel`` /
-    ``gp_kwargs`` / ``gp_priors``, ``acq_func`` ("pvrs", "ei" or an
+    ``gp_kwargs`` (e.g. ``{"warp_inputs": True}``) / ``gp_priors``,
+    ``acq_func`` (a key of :data:`ACQUISITION_FUNC` or an
     :class:`~bask_tpu_torch.acquisition.Acquisition`), ``random_state``,
     and ``gp_sample_kwargs`` forwarded to every refit. ``device`` and
-    ``dtype`` place the GP. Unknown kwargs are tolerated.
+    ``dtype`` place the GP; ``device=None`` is the CUDA card. Unknown
+    kwargs are tolerated.
     """
 
     def __init__(
@@ -69,7 +77,7 @@ class Optimizer:
         acq_func_kwargs: Optional[dict] = None,
         random_state=None,
         gp_sample_kwargs: Optional[dict] = None,
-        device="cpu",
+        device=None,
         dtype=torch.float32,
         **kwargs,
     ):
@@ -131,6 +139,13 @@ class Optimizer:
         return self._next_x
 
     def _candidate_grid(self):
+        """Fresh uniform candidate grid in the (unwarped) GP space; with
+        input warping, uniform in the warped space and mapped back, so the
+        density follows the learned warp (reference
+        ``bask/optimizer.py:353-363``)."""
+        if self.gp.warp_inputs:
+            d = self.space.transformed_n_dims
+            return self.gp.unwarp(self.rng.uniform(size=(self.n_points, d)))
         return self.space.transform(
             self.space.rvs(n_samples=self.n_points, random_state=self.rng)
         )

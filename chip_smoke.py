@@ -6,24 +6,34 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each printing one result line:
 
 1. the card, torch and CUDA versions, the matmul precision, and the
-   build of the two hand-written kernels from ``bask_tpu_torch/csrc``;
+   build of the hand-written kernels from ``bask_tpu_torch/csrc``;
 2. K1 (fused masked gram, ``csrc/gram.cu``) against its plain PyTorch
    version run in float64 on the same inputs, at the chain's shape
    (50, 512, 512), d = 15, for all four nu, ragged n_real = 500, and with
    per-walker X;
-3. K3 (base Cholesky + inverse, ``csrc/chol_base.cu``) against the
+3. K2 (the lower 128-tiles of K1's gram, the same source) against its
+   float64 plain version at the same shapes, bit-equal to K1 where it
+   computes and exactly 0 in the strictly upper 128-tiles;
+4. K3 (base Cholesky + inverse, ``csrc/chol_base.cu``) against the
    float64 factor, and the NaN contract on a non-PD block;
-4. the batched log marginal likelihood at (100, 512, d = 15) on the
+5. the batched log marginal likelihood at (100, 512, d = 15) on the
    bench dataset, float32 on the card against the port's float64 run on
-   the CPU;
-5. the Optimizer end to end on the card: a cold tell of 500 points
-   (ML-II, then sampling to split R-hat 1.1), three warm ask/tell rounds
-   with PVRS, one marginalized EI pass over a 500-point grid; both
-   kernels' launch counts over this phase.
+   the CPU; then with ``gram.LOWER_GRAM = "on"`` (K2), bit-equal to the
+   K1 run, for shared X and for per-walker warped X;
+6. the Optimizer end to end on the card: a cold tell of 500 points
+   (ML-II, then sampling to split R-hat 1.1 in capped legs), three warm
+   ask/tell rounds with PVRS, one marginalized EI pass over a 500-point
+   grid; the kernels' launch counts over this phase;
+7. the same Optimizer with input warping and ``LOWER_GRAM = "on"``: the
+   chain's grams come from K2 on per-walker warped X; a cold tell, three
+   warm PVRS tells, then one pass of each of the eight acquisitions over
+   a 500-point grid; the launch counts of K1, K2 and K3 over this phase,
+   which are the ``launches`` of the kernel table.
 
 No failure is caught: a phase that fails ends the run with a non-zero
-exit. Without a CUDA card it exits non-zero at once. The last two lines
-are the kernel table and ``{"ok": true, "device": {...}}``.
+exit. Without a CUDA card it exits non-zero at once. The last three
+lines are the card's name and power limit, the kernel table and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -38,6 +48,12 @@ import numpy as np
 
 # the north-star problem (bench.py): n = 500 points in 15-D, padded to 512
 N_OBS, N_DIM, N_PAD, N_WALKERS, N_CAND = 500, 15, 512, 100, 500
+# R-hat legs of 300 steps for each cold tell (the Optimizer's default is 12)
+COLD_LEGS = 2
+# published peaks of one H100 SXM (NVIDIA's datasheet): HBM bytes/s
+# and float32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 def report(phase: str, **fields) -> None:
@@ -70,6 +86,22 @@ def bench_dataset():
     X = rng.uniform(size=(N_OBS, N_DIM))
     y = np.sum((X - 0.5) ** 2, axis=1) + 0.05 * rng.randn(N_OBS)
     return X, (y - y.mean()) / y.std()
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    """(the least time for the work, what bounds it): bytes moved over the
+    HBM rate against float32 operations over the peak rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def gram_bound(B, n_pad, d, computed_share=1.0):
+    """The gram kernels' bound: read X, the packed rows and alpha once,
+    write the (B, n_pad, n_pad) float32 output once; per computed entry
+    2d FLOPs of distance and about 12 of Matern, mask and diagonal."""
+    n_bytes = 4 * (B * n_pad * n_pad + n_pad * d + B * (d + 2) + n_pad)
+    n_ops = computed_share * B * n_pad * n_pad * (2 * d + 12)
+    return bound_ms(n_bytes, n_ops)
 
 
 def bench_kernel(bk, nu=2.5):
@@ -168,9 +200,81 @@ def phase_gram(dev):
     )
     ms = cuda_ms(lambda: gram.fused_masked_gram_batch(spec, th, Xd, alpha, N_OBS))
     plain_ms = cuda_ms(lambda: gram.fused_masked_gram_plain(spec, th, Xd, alpha, N_OBS))
+    bound, by = gram_bound(B, N_PAD, N_DIM)
     report("phase 2 K1 gram", cases=cases, ms=ms, plain_ms=plain_ms,
-           shape=[B, N_PAD, N_PAD])
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+           bound_ms=bound, bound_by=by, shape=[B, N_PAD, N_PAD])
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def phase_lower_gram(dev):
+    """K2 against its plain version in float64 on the same inputs, at K1's
+    bound; its computed entries bit-equal to K1's on the card and its
+    strictly upper 128-tiles exactly 0. Times K2, K1 and the plain K2."""
+    import torch
+
+    from bask_tpu_torch.ops import gram
+    from bask_tpu_torch.ops import kernels as bk
+
+    rng = np.random.RandomState(4)
+    X, _ = bench_dataset()
+    Xd = torch.tensor(padded(X), dtype=torch.float32, device=dev)
+    alpha = torch.full((N_PAD,), 1e-6, dtype=torch.float32, device=dev)
+    B = N_WALKERS // 2
+    Xw = torch.tensor(
+        np.stack([padded(rng.uniform(size=(N_OBS, N_DIM))) for _ in range(B)]),
+        dtype=torch.float32, device=dev,
+    )
+    tiles = torch.arange(N_PAD, device=dev) // gram._SQ_TILE
+    upper = tiles[None, :] > tiles[:, None]
+    cases, worst = [], 0.0
+    for nu in (0.5, 1.5, 2.5, math.inf):
+        for Xin in (Xd, Xw):
+            kernel = bench_kernel(bk, nu)
+            spec = gram.match_fusable(kernel)
+            th = torch.tensor(
+                kernel.theta0[None] + 0.2 * rng.randn(B, kernel.n_theta),
+                dtype=torch.float32, device=dev,
+            )
+            K2 = gram.fused_masked_gram_lower_batch(spec, th, Xin, alpha, N_OBS)
+            K1 = gram.fused_masked_gram_batch(spec, th, Xin, alpha, N_OBS)
+            ref = gram.fused_masked_gram_lower_plain(
+                spec, th.double(), Xin.double(), alpha.double(), N_OBS
+            )
+            torch.cuda.synchronize()
+            err = float((K2.double() - ref).abs().max())
+            bound = 4e-6 * float(ref.abs().max())  # K1's bound (phase 2)
+            equal_k1 = bool(torch.equal(K2[:, ~upper], K1[:, ~upper]))
+            zeros = bool((K2[:, upper] == 0).all())
+            ok = bool(torch.isfinite(K2).all()) and err <= bound and equal_k1 and zeros
+            cases.append({"nu": nu, "mode": "per-walker X" if Xin.ndim == 3 else "shared X",
+                          "max_abs_err": err, "bound": bound, "equal_to_K1": equal_k1,
+                          "upper_zero": zeros, "ok": ok})
+            worst = max(worst, err)
+            if not ok:
+                raise AssertionError(f"K2 disagrees: {cases[-1]}")
+    kernel = bench_kernel(bk, 2.5)
+    spec = gram.match_fusable(kernel)
+    th = torch.tensor(
+        kernel.theta0[None] + 0.2 * rng.randn(B, kernel.n_theta),
+        dtype=torch.float32, device=dev,
+    )
+    args = (spec, th, Xd, alpha, N_OBS)
+    # in turns: K2, K1, K1, K2
+    t2a = cuda_ms(lambda: gram.fused_masked_gram_lower_batch(*args))
+    t1a = cuda_ms(lambda: gram.fused_masked_gram_batch(*args))
+    t1b = cuda_ms(lambda: gram.fused_masked_gram_batch(*args))
+    t2b = cuda_ms(lambda: gram.fused_masked_gram_lower_batch(*args))
+    plain_ms = cuda_ms(lambda: gram.fused_masked_gram_lower_plain(*args))
+    n_tiles = N_PAD // gram._SQ_TILE
+    share = n_tiles * (n_tiles + 1) / 2 / n_tiles**2
+    bound, by = gram_bound(B, N_PAD, N_DIM, share)
+    ms = float(np.median([t2a, t2b]))
+    report("phase 3 K2 lower gram", cases=cases, ms_turns=[t2a, t2b],
+           k1_ms_turns=[t1a, t1b], plain_ms=plain_ms, bound_ms=bound,
+           bound_by=by, computed_tile_share=share, shape=[B, N_PAD, N_PAD])
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
 def _spd_batch(rng, B, m):
@@ -213,12 +317,28 @@ def phase_chol(dev):
     nan_ok = bool(torch.isnan(Ln[:, -1, -1]).all() and torch.isnan(Xn[:, -1, -1]).all())
     if not nan_ok:
         raise AssertionError("K3 lost the NaN of a non-PD block")
-    A = torch.tensor(_spd_batch(rng, 50, 32), dtype=torch.float32, device=dev)
+    B, m = 50, 32
+    A = torch.tensor(_spd_batch(rng, B, m), dtype=torch.float32, device=dev)
+    eye = torch.eye(m, device=dev).expand(B, m, m)
+
+    def library():
+        # the PyTorch pair that computes the same function
+        L, _ = torch.linalg.cholesky_ex(A)
+        return L, torch.linalg.solve_triangular(L, eye, upper=False)
+
     ms = cuda_ms(lambda: chol_base.chol_inv_base(A))
     plain_ms = cuda_ms(lambda: chol_base.chol_inv_plain(A))
-    report("phase 3 K3 chol_base", cases=cases, nan_contract=nan_ok, ms=ms,
-           plain_ms=plain_ms, shape=[50, 32, 32])
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    library_ms = cuda_ms(library)
+    # read A once, write L and L^-1 once; m^3/3 FLOPs of factor and about
+    # m^3/3 of inverse per matrix (the m dependent steps are a latency
+    # floor this count does not see)
+    bound, by = bound_ms(3 * 4 * B * m * m, B * 2 * m**3 / 3)
+    report("phase 4 K3 chol_base", cases=cases, nan_contract=nan_ok, ms=ms,
+           plain_ms=plain_ms, library_ms=library_ms,
+           library="cholesky_ex + solve_triangular(L, I)", bound_ms=bound,
+           bound_by=by, shape=[B, m, m])
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
 
 
 def phase_lml(dev):
@@ -256,21 +376,61 @@ def phase_lml(dev):
     bound = 1e-5 * np.maximum(1.0, np.abs(ref))
     ok = bool(np.isfinite(lml).all() and (err <= bound).all())
     ms = cuda_ms(gpu, reps=10)
-    report("phase 4 batched LML", shape=[N_WALKERS, N_PAD, N_DIM],
-           lml_range=[float(lml.min()), float(lml.max())],
-           max_abs_err=float(err.max()), bound=float(bound.min()), ok=ok, ms=ms)
     if not ok:
         raise AssertionError("batched LML on the card disagrees with float64")
+    # LOWER_GRAM on (K2) against off (K1): bit for bit, shared X and
+    # per-walker warped X (each walker's own warp of the bench inputs)
+    from bask_tpu_torch.models import warping
+    from bask_tpu_torch.ops import gram
+
+    warp_params = 0.3 * np.random.RandomState(2).randn(2, N_WALKERS, N_DIM)
+    Xwarp = warping.warp(
+        torch.as_tensor(padded(X), dtype=torch.float32, device=dev),
+        *(torch.as_tensor(p, dtype=torch.float32, device=dev) for p in warp_params),
+    )
+    lower = {}
+    for mode, Xin in (("shared X", padded(X)), ("warped per-walker X", Xwarp)):
+        args = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+                for a in (thetas, Xin, yp, np.full(N_PAD, 1e-6))]
+        args.append(torch.as_tensor(mask, device=dev))
+        off = linalg.batched_lml(kernel, *args, n_real=N_OBS)
+        k2 = gram.fused_masked_gram_lower_batch.launches
+        gram.LOWER_GRAM = "on"
+        try:
+            on = linalg.batched_lml(kernel, *args, n_real=N_OBS)
+        finally:
+            gram.LOWER_GRAM = "off"
+        lower[mode] = {
+            "bit_equal": bool(torch.equal(on, off)),
+            "finite": bool(torch.isfinite(off).all()),
+            "k2_launched": gram.fused_masked_gram_lower_batch.launches > k2,
+        }
+    report("phase 5 batched LML", shape=[N_WALKERS, N_PAD, N_DIM],
+           lml_range=[float(lml.min()), float(lml.max())],
+           max_abs_err=float(err.max()), bound=float(bound.min()), ok=ok, ms=ms,
+           lower_gram=lower)
+    if not all(all(v.values()) for v in lower.values()):
+        raise AssertionError(f"LML with LOWER_GRAM on differs from off: {lower}")
 
 
-def phase_optimizer(dev):
-    """The Optimizer's main path on the card; returns the launch counts."""
+def _kernel_counters():
+    from bask_tpu_torch.ops import chol_base, gram
+
+    return {
+        "K1": gram.fused_masked_gram_batch,
+        "K2": gram.fused_masked_gram_lower_batch,
+        "K3": chol_base.chol_inv_base,
+    }
+
+
+def _drive_optimizer(dev, gp_kwargs=None):
+    """Build the Optimizer on the bench problem, zero the launch counts,
+    then a cold tell of N_OBS points and three warm ask/tell rounds (PVRS).
+    Returns (optimizer, cold seconds, the cold tell's R-hat result, warm
+    seconds, asks)."""
     import torch
 
-    from bask_tpu_torch import ExpectedImprovement, Optimizer
-    from bask_tpu_torch.acquisition import evaluate_acquisitions_fused
-    from bask_tpu_torch.models import gp as gpc
-    from bask_tpu_torch.ops import chol_base, gram
+    from bask_tpu_torch import Optimizer
 
     X, _ = bench_dataset()
 
@@ -279,13 +439,13 @@ def phase_optimizer(dev):
 
     y = [objective(x) for x in X]
     opt = Optimizer(
-        dimensions=[(0.0, 1.0)] * N_DIM, n_initial_points=N_OBS,
-        random_state=0, device=dev, dtype=torch.float32,
-        gp_sample_kwargs={"max_extensions": 4, "extension_steps": 300},
+        dimensions=[(0.0, 1.0)] * N_DIM, n_points=N_CAND, n_initial_points=N_OBS,
+        random_state=0, gp_kwargs=gp_kwargs, device=dev, dtype=torch.float32,
+        gp_sample_kwargs={"max_extensions": COLD_LEGS, "extension_steps": 300},
     )
     torch.cuda.reset_peak_memory_stats(dev)
-    gram.fused_masked_gram_batch.launches = 0
-    chol_base.chol_inv_base.launches = 0
+    for fn in _kernel_counters().values():
+        fn.launches = 0
     t0 = time.perf_counter()
     opt.tell(X.tolist(), y)
     torch.cuda.synchronize()
@@ -299,6 +459,34 @@ def phase_optimizer(dev):
         opt.tell(x, objective(x))
         torch.cuda.synchronize()
         warm_s.append(time.perf_counter() - t0)
+    return opt, cold_s, rhat, warm_s, asks
+
+
+def _consensus_lml_f64(gp):
+    """The consensus LML recomputed by the port's float64 CPU path on the
+    posterior's own (warped, where warping) data."""
+    import torch
+
+    from bask_tpu_torch.models import gp as gpc
+
+    d = gp._post_data
+    data64 = gpc.make_data(
+        *(t.detach().cpu().double() for t in (d.X, d.y, d.alpha_diag)),
+        d.mask.cpu(), d.y_mean, d.y_std,
+    )
+    return float(gpc.log_marginal_likelihood(
+        gp._spec, torch.as_tensor(gp.theta, dtype=torch.float64), data64
+    ))
+
+
+def phase_optimizer(dev):
+    """The Optimizer's main path on the card (K1 gram, K3 bases)."""
+    import torch
+
+    from bask_tpu_torch import ExpectedImprovement
+    from bask_tpu_torch.acquisition import evaluate_acquisitions_fused
+
+    opt, cold_s, rhat, warm_s, asks = _drive_optimizer(dev)
     grid = np.random.RandomState(3).uniform(size=(N_CAND, N_DIM))
     t0 = time.perf_counter()
     ei = evaluate_acquisitions_fused(
@@ -306,27 +494,17 @@ def phase_optimizer(dev):
     )
     torch.cuda.synchronize()
     ei_s = time.perf_counter() - t0
-    launches = {
-        "K1": gram.fused_masked_gram_batch.launches,
-        "K3": chol_base.chol_inv_base.launches,
-    }
+    launches = {k: fn.launches for k, fn in _kernel_counters().items()}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     gp = opt.gp
     acceptance = gp.n_accepted_ / gp.n_proposals_
     lml = gp.log_marginal_likelihood_value_
-    # the consensus LML recomputed by the port's float64 CPU path
-    data64 = gpc.make_data(
-        *(t.detach().cpu().double() for t in (gp._data.X, gp._data.y, gp._data.alpha_diag)),
-        gp._data.mask.cpu(), gp._data.y_mean, gp._data.y_std,
-    )
-    lml64 = float(gpc.log_marginal_likelihood(
-        gp._spec, torch.as_tensor(gp.theta, dtype=torch.float64), data64
-    ))
+    lml64 = _consensus_lml_f64(gp)
     inside = all(0.0 <= v <= 1.0 for x in asks for v in x)
     report(
-        "phase 5 optimizer",
-        cold_tell_s=cold_s, rhat=rhat, warm_tell_s=warm_s, ei_pass_s=ei_s,
-        last_timings=opt.last_timings_, acceptance=acceptance,
+        "phase 6 optimizer",
+        cold_tell_s=cold_s, rhat=rhat, warm_tell_s=warm_s,
+        ei_pass_s=ei_s, last_timings=opt.last_timings_, acceptance=acceptance,
         consensus_lml=lml, consensus_lml_f64=lml64,
         ei_shape=list(ei.shape), ei_finite=bool(np.isfinite(ei).all()),
         asks_inside_bounds=inside, launches=launches, peak_mem_gb=peak_gb,
@@ -343,6 +521,64 @@ def phase_optimizer(dev):
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"optimizer phase failed: {failed}")
+
+
+def phase_warped_optimizer(dev):
+    """This slice's main path: the Optimizer with input warping and
+    LOWER_GRAM on, so the chain's grams come from K2 on per-walker warped
+    X; then one pass of each of the eight acquisitions. Returns the
+    launch counts of the phase."""
+    import torch
+
+    from bask_tpu_torch.acquisition import evaluate_acquisitions_fused
+    from bask_tpu_torch.ops import gram
+    from bask_tpu_torch.optimizer import ACQUISITION_FUNC
+
+    gram.LOWER_GRAM = "on"
+    try:
+        opt, cold_s, rhat, warm_s, asks = _drive_optimizer(dev, {"warp_inputs": True})
+        grid = opt._candidate_grid()  # warp-density candidates
+        acq_s, acq_ok = {}, {}
+        for name, acq in sorted(ACQUISITION_FUNC.items()):
+            t0 = time.perf_counter()
+            vals = evaluate_acquisitions_fused(
+                grid, gpr=opt.gp, acq=acq, n_samples=N_WALKERS // 5, random_state=5
+            )
+            torch.cuda.synchronize()
+            acq_s[name] = time.perf_counter() - t0
+            acq_ok[name] = vals.shape == (1, N_CAND) and bool(np.isfinite(vals).all())
+        launches = {k: fn.launches for k, fn in _kernel_counters().items()}
+    finally:
+        gram.LOWER_GRAM = "off"
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    gp = opt.gp
+    acceptance = gp.n_accepted_ / gp.n_proposals_
+    lml = gp.log_marginal_likelihood_value_
+    lml64 = _consensus_lml_f64(gp)
+    inside = all(0.0 <= v <= 1.0 for x in asks for v in x)
+    report(
+        "phase 7 warped optimizer",
+        cold_tell_s=cold_s, rhat=rhat, warm_tell_s=warm_s,
+        last_timings=opt.last_timings_, acceptance=acceptance,
+        acquisition_pass_s=acq_s, acquisition_finite=acq_ok,
+        consensus_lml=lml, consensus_lml_f64=lml64,
+        warp_alphas=gp.warp_alphas_.tolist(), warp_betas=gp.warp_betas_.tolist(),
+        chain_dims=int(gp.chain_.shape[1]), asks_inside_bounds=inside,
+        launches=launches, peak_mem_gb=peak_gb,
+    )
+    checks = {
+        "K1 launched": launches["K1"] > 0,
+        "K2 launched": launches["K2"] > 0,
+        "K3 launched": launches["K3"] > 0,
+        "consensus LML finite": math.isfinite(lml),
+        "consensus LML matches f64": abs(lml - lml64) <= 1e-5 * max(1.0, abs(lml64)),
+        "chain carries 2d warp dims": gp.chain_.shape[1] == gp._spec.n_theta + 2 * N_DIM,
+        "asks inside bounds": inside,
+        "every acquisition finite": all(acq_ok.values()) and len(acq_ok) == 8,
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"warped optimizer phase failed: {failed}")
     return launches
 
 
@@ -356,21 +592,28 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda", 0)
-    phase_device()
+    smi = phase_device()
     k1 = phase_gram(dev)
+    k2 = phase_lower_gram(dev)
     k3 = phase_chol(dev)
     phase_lml(dev)
-    launches = phase_optimizer(dev)
+    phase_optimizer(dev)
+    launches = phase_warped_optimizer(dev)
     table = [
         {"name": "K1 fused masked gram", "route": "cuda",
          "source": "bask_tpu_torch/csrc/gram.cu",
          "replaces": "bask_tpu/ops/pallas_gram.py:193",
          "launches": launches["K1"], **k1},
+        {"name": "K2 fused masked gram, lower 128-tiles", "route": "cuda",
+         "source": "bask_tpu_torch/csrc/gram.cu",
+         "replaces": "bask_tpu/ops/pallas_gram.py:264",
+         "launches": launches["K2"], **k2},
         {"name": "K3 base Cholesky + inverse", "route": "cuda",
          "source": "bask_tpu_torch/csrc/chol_base.cu",
-         "replaces": "bask_tpu/ops/pallas_chol_base.py:104",
+         "replaces": "bask_tpu/ops/pallas_chol_base.py:105",
          "launches": launches["K3"], **k3},
     ]
+    print(smi, flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

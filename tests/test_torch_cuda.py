@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on a card: K1 (gram) and K3 (base Cholesky +
-inverse) against their plain versions, their launch counters, the
-wrappers' refusals, and the batched LML through both kernels.
+"""The port's CUDA kernels on a card: K1 and K2 (gram, full and lower
+128-tiles) and K3 (base Cholesky + inverse) against their plain versions,
+their launch counters, the wrappers' refusals, and the batched LML
+through the kernels (with K2, bit-equal to the K1 run).
 
 Every test here needs a CUDA card and skips without one. The file
 imports no JAX, so it also runs where only the port is installed:
@@ -135,3 +136,56 @@ def test_batched_lml_runs_both_kernels(dev):
     ref = run("cpu", torch.float64).numpy()
     assert np.isfinite(lml).all()
     np.testing.assert_allclose(lml, ref, rtol=1e-5)
+
+
+def _upper_tiles(n_pad, dev):
+    t = torch.arange(n_pad, device=dev) // 128
+    return t[None, :] > t[:, None]
+
+
+@pytest.mark.parametrize("nu", [0.5, 1.5, 2.5, math.inf])
+@pytest.mark.parametrize("per_walker", [False, True])
+def test_lower_gram_kernel_matches_plain_and_k1(dev, nu, per_walker):
+    """K2 within K1's bound of the float64 plain version, its computed
+    entries bit-equal to K1's, its strictly upper 128-tiles exactly 0."""
+    spec = gram.FusedSpec(nu=nu, n_ls=15, has_const=True, has_white=True)
+    thetas, X, alpha = _gram_inputs(dev, per_walker)
+    before = gram.fused_masked_gram_lower_batch.launches
+    K2 = gram.fused_masked_gram_lower_batch(spec, thetas, X, alpha, 500)
+    K1 = gram.fused_masked_gram_batch(spec, thetas, X, alpha, 500)
+    torch.cuda.synchronize()
+    assert gram.fused_masked_gram_lower_batch.launches == before + 1
+    ref = gram.fused_masked_gram_lower_plain(spec, thetas.double(), X.double(), alpha.double(), 500)
+    assert float((K2.double() - ref).abs().max()) <= 4e-6 * float(ref.abs().max())
+    upper = _upper_tiles(512, dev)
+    assert torch.equal(K2[:, ~upper], K1[:, ~upper])
+    assert torch.equal(K2[:, upper], torch.zeros_like(K2[:, upper]))
+
+
+def test_lower_gram_refuses_non_128_buckets(dev):
+    spec = gram.match_fusable(KERNEL)
+    thetas, X, alpha = _gram_inputs(dev, False, n=150, n_pad=192)
+    with pytest.raises(ValueError):
+        gram.fused_masked_gram_lower_batch(spec, thetas, X, alpha, 150)
+
+
+@pytest.mark.parametrize("per_walker", [False, True])
+def test_batched_lml_lower_gram_is_bit_identical(dev, monkeypatch, per_walker):
+    """The chain's LML with LOWER_GRAM on (K2) equals the run with it off
+    (K1) bit for bit: the factorization reads only the lower tiles."""
+    rng = np.random.RandomState(6)
+    n, n_pad, d, W = 200, 256, 15, 10
+    shape = (W, n_pad, d) if per_walker else (n_pad, d)
+    X = np.full(shape, 0.5)
+    X[..., :n, :] = rng.uniform(size=shape[:-2] + (n, d))
+    y = np.zeros(n_pad)
+    y[:n] = rng.randn(n)
+    thetas = KERNEL.theta0[None] + 0.1 * rng.randn(W, KERNEL.n_theta)
+    t = [torch.tensor(a, dtype=torch.float32, device=dev) for a in (thetas, X, y, np.full(n_pad, 1e-6))]
+    mask = torch.tensor(np.arange(n_pad) < n, device=dev)
+    off = linalg.batched_lml(KERNEL, *t, mask, n_real=n)
+    monkeypatch.setattr(gram, "LOWER_GRAM", "on")
+    k2 = gram.fused_masked_gram_lower_batch.launches
+    on = linalg.batched_lml(KERNEL, *t, mask, n_real=n)
+    assert gram.fused_masked_gram_lower_batch.launches == k2 + 1
+    assert torch.isfinite(off).all() and torch.equal(on, off)

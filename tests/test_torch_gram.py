@@ -1,9 +1,11 @@
-"""K1, the fused masked gram: its plain PyTorch version against the JAX
-package's Pallas kernel run in interpret mode, the structure matcher and
-the CPU dispatch of the wrapper. The CUDA kernel itself is tested in
-tests/test_torch_cuda.py."""
+"""K1 and K2, the fused masked grams: their plain PyTorch versions
+against the JAX package's Pallas kernels run in interpret mode, the
+structure matcher, the CPU dispatch of the wrappers, and the lower-only
+contract of the factorization that lets K2 skip the upper tiles. The CUDA
+kernels themselves are tested in tests/test_torch_cuda.py."""
 
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -16,7 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from bask_tpu.ops import kernels as jk  # noqa: E402
 from bask_tpu_torch import convert  # noqa: E402
-from bask_tpu_torch.ops import gram  # noqa: E402
+from bask_tpu_torch.ops import gram, linalg  # noqa: E402
 
 
 @pytest.fixture
@@ -133,3 +135,83 @@ def test_cpu_tensor_runs_plain_version():
         gram.fused_masked_gram_plain(*args).numpy(),
     )
     assert gram.fused_masked_gram_batch.launches == before
+
+
+def _nu_kernel(nu):
+    ls = ((0.4, 0.2, 0.6), (0.05, 2.0))
+    base = jk.RBF(*ls) if nu == math.inf else jk.Matern(*ls, nu=nu)
+    return jk.ConstantKernel(1.0, (0.1, 2.0)) * base + jk.WhiteKernel(0.05, (1e-5, 1e5))
+
+
+def _upper_tiles(n_pad):
+    t = np.arange(n_pad) // gram._SQ_TILE
+    return t[None, :] > t[:, None]
+
+
+@pytest.mark.parametrize("nu", [0.5, 1.5, 2.5, math.inf])
+@pytest.mark.parametrize("per_walker", [False, True])
+def test_lower_plain_matches_pallas_interpret(nu, per_walker, interpret_pallas):
+    """K2's plain version against the JAX package's lower-triangle kernel
+    at K1's tolerance; its lower part is exactly K1's plain version and
+    its strictly upper 128-tiles are exactly 0 (n = 200 in n_pad = 256)."""
+    pg = interpret_pallas
+    kernel = _nu_kernel(nu)
+    thetas, X, alpha = _inputs(kernel, 5, n=200, n_pad=256, d=3, B=2, per_walker=per_walker)
+    K_jax = np.asarray(
+        pg.fused_masked_gram_lower_batch(
+            pg.match_fusable(kernel), jnp.asarray(thetas), jnp.asarray(X),
+            jnp.asarray(alpha), 200,
+        )
+    )
+    spec = gram.match_fusable(convert.kernel_spec(kernel))
+    args = (spec, torch.from_numpy(thetas), torch.from_numpy(X), torch.from_numpy(alpha), 200)
+    K2 = gram.fused_masked_gram_lower_batch(*args)
+    assert K2.dtype == torch.float32 and K2.shape == K_jax.shape
+    np.testing.assert_allclose(K2.numpy(), K_jax, rtol=0, atol=RTOL * np.abs(K_jax).max())
+    upper = torch.from_numpy(_upper_tiles(256))
+    K1 = gram.fused_masked_gram_plain(*args)
+    assert torch.equal(K2[:, ~upper], K1[:, ~upper])
+    assert torch.equal(K2[:, upper], torch.zeros_like(K2[:, upper]))
+    assert (K_jax[:, _upper_tiles(256)] == 0).all()
+
+
+def test_lower_wrapper_cpu_dispatch_and_refusal():
+    kernel = _nu_kernel(2.5)
+    thetas, X, alpha = _inputs(kernel, 6, n=100, n_pad=128, d=3, B=2)
+    spec = gram.match_fusable(convert.kernel_spec(kernel))
+    args = (spec, torch.from_numpy(thetas), torch.from_numpy(X), torch.from_numpy(alpha), 100)
+    before = gram.fused_masked_gram_lower_batch.launches
+    assert torch.equal(
+        gram.fused_masked_gram_lower_batch(*args), gram.fused_masked_gram_lower_plain(*args)
+    )
+    assert gram.fused_masked_gram_lower_batch.launches == before
+    assert gram.LOWER_GRAM == "off"  # the JAX package's default
+    thetas, X, alpha = _inputs(kernel, 6, n=100, n_pad=192, d=3, B=2)
+    with pytest.raises(ValueError):  # the zero pattern needs 128-tiles
+        gram.fused_masked_gram_lower_plain(
+            spec, torch.from_numpy(thetas), torch.from_numpy(X), torch.from_numpy(alpha), 100
+        )
+
+
+@pytest.mark.parametrize("n_pad", [128, 512, 640])
+def test_lml_from_lower_gram_is_bit_identical(n_pad):
+    """The blocked factorization reads only the lower 128-tiles, so the
+    float32 LML of K2's gram equals that of K1's gram bit for bit; 640
+    takes the ragged 256/256/128 panels of fast_cholesky.pick_nb (the
+    port's counterpart of tests/test_pallas_gram.py's lower-gram case)."""
+    kernel = _nu_kernel(2.5)
+    n = n_pad - 12
+    thetas, X, alpha = _inputs(kernel, 7, n=n, n_pad=n_pad, d=3, B=2)
+    rng = np.random.RandomState(8)
+    y = np.zeros(n_pad, np.float32)
+    y[:n] = rng.randn(n)
+    mask = torch.from_numpy(np.arange(n_pad) < n)
+    spec = gram.match_fusable(convert.kernel_spec(kernel))
+    args = (spec, torch.from_numpy(thetas), torch.from_numpy(X), torch.from_numpy(alpha), n)
+    K1 = gram.fused_masked_gram_plain(*args)
+    K2 = gram.fused_masked_gram_lower_plain(*args)
+    assert torch.equal(K1, K2) == (n_pad == 128)  # one tile: nothing to zero
+    lml1 = linalg.batched_lml_from_gram(K1, torch.from_numpy(y), mask)
+    lml2 = linalg.batched_lml_from_gram(K2, torch.from_numpy(y), mask)
+    assert lml1.dtype == torch.float32 and torch.isfinite(lml1).all()
+    assert torch.equal(lml1, lml2)

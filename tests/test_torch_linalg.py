@@ -186,7 +186,7 @@ def test_jitter_ladder_rung_matches_jax():
     theta = kernel.theta0
     data_j = jgp.make_data(*(jnp.asarray(a) for a in (X, y, alpha)), jnp.asarray(mask))
     post_j = jbg._posterior_robust_body(jnp.asarray(theta), data_j, kernel)
-    data_t = convert.gp_data(X, y, alpha, mask)
+    data_t = convert.gp_data(X, y, alpha, mask, device="cpu")
     spec = convert.kernel_spec(kernel)
     post_t = tbg._posterior_robust_body(torch.from_numpy(theta), data_t, spec)
     Kp = tlin.masked_gram(spec, torch.from_numpy(theta), data_t.X, data_t.alpha_diag, data_t.mask)
