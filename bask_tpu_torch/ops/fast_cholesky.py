@@ -6,9 +6,22 @@ PyTorch counterpart of :mod:`bask_tpu.ops.fast_cholesky`:
   L11 = chol(A11), L21 = A21 L11^-T, L22 = chol(A22 - L21 L21^T),
 * the inverse assembled in the same recursion,
   inv([[L11, 0], [L21, L22]]) = [[inv11, 0], [-inv22 (L21 inv11), inv22]],
-* bases of size <= 32 factor and invert in one call of the K3 kernel
-  (:func:`bask_tpu_torch.ops.chol_base.chol_inv_base`; its plain version
-  on the CPU).
+* bases of size <= ``_BASE`` = 128 factor and invert in one call of the
+  K3 kernel (:func:`bask_tpu_torch.ops.chol_base.chol_inv_base`; its plain
+  version on the CPU), which reads a diagonal block where it lies.
+
+The base is 128 wide, not the JAX package's 32, on the card and on the
+CPU alike (so the CPU tests run the blocking the card runs). On the TPU
+the recursion's glue (two GEMMs, a ``zeros_like`` and six
+concatenations per level) ran inside one jitted program and cost no
+launches; here the port runs eagerly and the host pays ~15-18 us for
+every device operation, more than most of these operations take on the
+card. A 128 base removes the recursion below each 128-wide panel: one
+(50, 512, 512) factorization with its forward solve issues 4 K3 launches
+and 37 device operations instead of 16 launches and 205 (measured on an
+H100 by ``chip_smoke.py``'s factorization A/B). The panels of
+:func:`pick_nb` (128/256) are unchanged, so the diagonal-block inverses
+``invs`` that the solves and ``predict(invs=)`` take keep their layout.
 
 The GEMMs around the base are ``torch.matmul`` at full f32 (the package
 never enables TF32). A non-PD input surfaces as NaN in a base factor and
@@ -20,10 +33,11 @@ Lower-only contract: everything here reads only the lower triangle of
 upper 128-tiles are zeros (kernel K2, ``ops.gram.LOWER_GRAM``) gives
 bit-identical results to the full gram. It holds because
 
-* the recursion splits at ``h = n // 2`` and reads ``A[:h, :h]``,
-  ``A[h:, :h]`` and ``A[h:, h:]``, never ``A[:h, h:]``; a base block
-  (<= 32) lies inside one diagonal 128-tile, which K2 computes in full,
-  and K3 (and its plain version) reads ``M[r][j]`` only for ``r >= j``;
+* a base is a whole diagonal 128-tile (or a ragged last panel of 64, or
+  a half of a 256 panel), which K2 computes in full, and K3 (and its
+  plain version) reads only the lower triangle of it;
+* the recursion of a 256 panel splits at ``h = n // 2`` = 128 and reads
+  ``A[:h, :h]``, ``A[h:, :h]`` and ``A[h:, h:]``, never ``A[:h, h:]``;
 * the panels of :func:`pick_nb` are 128 or 256 wide and start on
   128-multiples, so a strictly upper 128-tile is only ever in the upper
   part of a trailing block or of a 256 panel, which the recursion does
@@ -50,7 +64,7 @@ __all__ = [
     "pick_nb",
 ]
 
-_BASE = 32
+_BASE = 128  # K3's largest block: one launch per 128-wide panel
 
 
 def _chol_inv_recursive(A):

@@ -28,14 +28,28 @@ bit-identical to K1's. The chain uses it when :data:`LOWER_GRAM` is
 JAX package.
 
 What bounds the kernel on an H100: the output write. At the chain's shape
-(50, 512, 512) f32 that is 52 MB, about 16 us at 3.35 TB/s, against
-about 2d + 20 flops per entry. So the kernel keeps every intermediate
-(scaled rows, norms, distances) in shared memory and registers, and each
-warp stores whole 128-byte row segments. One block computes a 64 x 64
-tile of one walker's gram with plain FP32 FMAs (no TF32), looping over
-``d`` in 32-wide chunks so any input width works. K2 writes the same
-bytes (its zeros are stored, as on the TPU) and computes only the lower
-128-tiles, 10 of 16 at n_pad = 512: the same write bound.
+(50, 512, 512) f32 that is 52.4 MB, 15.7 us at 3.35 TB/s, against about
+2d + 20 operations per entry. So the kernel keeps every intermediate
+(scaled rows, norms, distances) in shared memory and registers and
+writes each entry once, as part of a float4 (a warp stores 512
+contiguous bytes of a row). One 256-thread block computes a 64 x 128
+tile of one walker's gram with plain FP32 FMAs (no TF32), each thread an
+8 x 4 register tile; the tile's rows of X are staged with coalesced
+loads in 16-wide chunks of ``d``, so any input width works, and each
+row's squared norm is computed once per tile by the dot product's own
+FMA chain (so d2(i, i) is exactly 0). The kernel also does the packing:
+it reads ``thetas`` and the spec's flags and forms ``amp``, ``noise``
+and ``1/ls`` with ``expf``, so the wrapper issues one device operation,
+the launch. CUDA's ``expf`` is within 2 ulp (2.4e-7 relative) of the
+exact exponential, as is ``torch.exp``; that moves an entry by at most
+about 5e-7 max|K| (|r dk/dr| <= max|K| over the four nu), inside the
+4e-6 max|K| that the kernel is held to against float64.
+K2 writes the same bytes (its zeros are stored, as on the TPU) and
+computes only the lower 128-tiles, 10 of 16 at n_pad = 512: the same
+write bound.
+
+:func:`_pack_params` (the packed rows ``[amp, noise, 1/ls...]``, as the
+JAX package packs them) stays for the plain version and the tests.
 """
 
 from __future__ import annotations
@@ -59,7 +73,7 @@ __all__ = [
     "LOWER_GRAM",
 ]
 
-_TILE = 64  # the kernel's output tile; n_pad must be a multiple
+_TILE = 64  # the kernel's row tile; n_pad must be a multiple
 # K2 for the chain's grams: "on" or "off" (the JAX package's default)
 LOWER_GRAM = "off"
 _SQ_TILE = 128  # K2's zero pattern follows 128-tiles; n_pad must be a multiple
@@ -211,13 +225,15 @@ fused_masked_gram_lower_batch.launches = 0
 
 def _launch(entry: str, multiple: int, spec, thetas, X, alpha_diag, n_real):
     """Check the arguments, then launch the C entry point ``entry`` of
-    ``csrc/gram.cu`` on the current stream."""
+    ``csrc/gram.cu`` on the current stream: one device operation."""
     from ._cuda import check, library
 
     B = thetas.shape[0]
     n_pad, d = X.shape[-2:]
     if X.dtype != torch.float32 or alpha_diag.dtype != torch.float32:
         raise TypeError("gram kernel takes float32 X and alpha_diag")
+    if thetas.dtype != torch.float32:
+        raise TypeError(f"gram kernel takes float32 thetas, got {thetas.dtype}")
     if X.ndim not in (2, 3) or (X.ndim == 3 and X.shape[0] != B):
         raise ValueError(f"X must be (n_pad, d) or ({B}, n_pad, d), got {tuple(X.shape)}")
     if n_pad % multiple:
@@ -228,22 +244,28 @@ def _launch(entry: str, multiple: int, spec, thetas, X, alpha_diag, n_real):
         raise ValueError("thetas, X and alpha_diag must be on one CUDA device")
     if not 0 <= int(n_real) <= n_pad:
         raise ValueError(f"n_real={n_real} outside [0, {n_pad}]")
-    X = X.contiguous()
-    alpha_diag = alpha_diag.contiguous()
-    packed = _pack_params(spec, thetas, d)
-    if thetas.ndim != 2 or packed.shape != (B, d + 2):
+    n_theta = int(spec.has_const) + spec.n_ls + int(spec.has_white)
+    if spec.n_ls not in (1, d) or thetas.ndim != 2 or thetas.shape[1] < n_theta:
         raise ValueError(
             f"thetas {tuple(thetas.shape)} do not give one [amp, noise, 1/ls] "
-            f"row of {d + 2} per walker for {spec}"
+            f"row per walker for {spec} and d={d}"
         )
-    # the temporaries (packed, contiguous copies) may be freed on return:
-    # the caching allocator hands their blocks only to work queued after
-    # this launch on the same stream
+    # no-ops for the chain's tensors; a copy, where one is made, may be
+    # freed on return: the caching allocator hands its block only to work
+    # queued after this launch on the same stream
+    X = X.contiguous()
+    alpha_diag = alpha_diag.contiguous()
+    if thetas.stride(1) != 1:
+        thetas = thetas.contiguous()
     out = torch.empty((B, n_pad, n_pad), dtype=torch.float32, device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
     check(
         getattr(library(), entry)(
-            packed.data_ptr(),
+            thetas.data_ptr(),
+            thetas.stride(0),
+            int(spec.has_const),
+            int(spec.has_white),
+            spec.n_ls,
             X.data_ptr(),
             ctypes.c_longlong(n_pad * d if X.ndim == 3 else 0),
             alpha_diag.data_ptr(),

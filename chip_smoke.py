@@ -9,13 +9,20 @@ Phases, each printing one result line:
    build of the hand-written kernels from ``bask_tpu_torch/csrc``;
 2. K1 (fused masked gram, ``csrc/gram.cu``) against its plain PyTorch
    version run in float64 on the same inputs, at the chain's shape
-   (50, 512, 512), d = 15, for all four nu, ragged n_real = 500, and with
-   per-walker X;
+   (50, 512, 512), d = 15, for all four nu, ragged n_real = 500, with
+   per-walker X, and for the spec variants the in-kernel packing reads
+   (no ConstantKernel, no WhiteKernel, one isotropic lengthscale); a
+   profiler count that one wrapper call issues one device operation;
 3. K2 (the lower 128-tiles of K1's gram, the same source) against its
    float64 plain version at the same shapes, bit-equal to K1 where it
    computes and exactly 0 in the strictly upper 128-tiles;
-4. K3 (base Cholesky + inverse, ``csrc/chol_base.cu``) against the
-   float64 factor, and the NaN contract on a non-PD block;
+4. K3 (Cholesky + inverse of blocks up to 128 wide,
+   ``csrc/chol_base.cu``) against the float64 factor at m = 32, 64 and
+   128, read in place from a diagonal block of a (50, 512, 512) gram, and
+   the NaN contract on a non-PD block at m = 128; then the factorization
+   A/B: one (50, 512, 512) factorization + forward solve with 32-wide
+   and 128-wide K3 bases against ``cholesky_ex`` + ``solve_triangular``,
+   in turns;
 5. the batched log marginal likelihood at (100, 512, d = 15) on the
    bench dataset, float32 on the card against the port's float64 run on
    the CPU; then with ``gram.LOWER_GRAM = "on"`` (K2), bit-equal to the
@@ -112,6 +119,44 @@ def bench_kernel(bk, nu=2.5):
     ) + bk.WhiteKernel(0.05, (1e-5, 1e5))
 
 
+def variant_kernel(bk, variant, nu=2.5):
+    """The bench kernel with one part of the fused family changed: the
+    layouts of thetas the gram kernel's in-kernel packing reads."""
+    base = bk.RBF if nu == math.inf else bk.Matern
+    kw = {} if nu == math.inf else {"nu": nu}
+    ls = 0.3 if variant == "isotropic" else tuple([0.3] * N_DIM)
+    core = base(ls, (0.05, 2.0), **kw)
+    white = bk.WhiteKernel(0.05, (1e-5, 1e5))
+    const = bk.ConstantKernel(1.0, (0.1, 2.0))
+    return {
+        "no ConstantKernel": core + white,
+        "no WhiteKernel": const * core,
+        "isotropic": const * core + white,
+    }[variant]
+
+
+def profiled(fn, reps=1):
+    """(device operations per ``fn()``, the device events) over ``reps``
+    calls after one warm-up call, by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(ops) / reps, ops
+
+
+def kernel_us(ops, key):
+    """Median device microseconds of the profiled kernels named ``key``."""
+    times = [e.device_time for e in ops if key in e.name]
+    return float(np.median(times)) if times else None
+
+
 def padded(X):
     Xp = np.full((N_PAD, X.shape[1]), 0.5)
     Xp[: len(X)] = X
@@ -171,8 +216,11 @@ def phase_gram(dev):
     # points (the bound tests/test_pallas_gram.py's fused-marginal case holds)
     rtol = 4e-6
     cases, worst = [], 0.0
-    for nu, Xin in [(nu, Xd) for nu in (0.5, 1.5, 2.5, math.inf)] + [(2.5, Xw)]:
-        kernel = bench_kernel(bk, nu)
+    runs = [(f"nu={nu}", bench_kernel(bk, nu), Xd) for nu in (0.5, 1.5, 2.5, math.inf)]
+    runs.append(("nu=2.5, per-walker X", bench_kernel(bk, 2.5), Xw))
+    runs += [(v, variant_kernel(bk, v), Xd)
+             for v in ("no ConstantKernel", "no WhiteKernel", "isotropic")]
+    for label, kernel, Xin in runs:
         spec = gram.match_fusable(kernel)
         th = torch.tensor(
             kernel.theta0[None] + 0.2 * rng.randn(B, kernel.n_theta),
@@ -186,8 +234,7 @@ def phase_gram(dev):
         err = float((K.double() - ref).abs().max())
         bound = rtol * float(ref.abs().max())
         ok = bool(torch.isfinite(K).all()) and err <= bound
-        mode = "per-walker X" if Xin.ndim == 3 else "shared X"
-        cases.append({"nu": nu, "mode": mode, "n_real": N_OBS,
+        cases.append({"case": label, "spec": spec._asdict(), "n_real": N_OBS,
                       "max_abs_err": err, "bound": bound, "ok": ok})
         worst = max(worst, err)
         if not ok:
@@ -198,10 +245,20 @@ def phase_gram(dev):
         kernel.theta0[None] + 0.2 * rng.randn(B, kernel.n_theta),
         dtype=torch.float32, device=dev,
     )
-    ms = cuda_ms(lambda: gram.fused_masked_gram_batch(spec, th, Xd, alpha, N_OBS))
+    def call():
+        return gram.fused_masked_gram_batch(spec, th, Xd, alpha, N_OBS)
+
+    ops_per_call, _ = profiled(call)
+    if ops_per_call != 1:
+        raise AssertionError(f"K1's wrapper issued {ops_per_call} device operations, not 1")
+    _, ops = profiled(call, reps=20)
+    alone_us = kernel_us(ops, "gram_kernel")
+    ms = cuda_ms(call)
     plain_ms = cuda_ms(lambda: gram.fused_masked_gram_plain(spec, th, Xd, alpha, N_OBS))
     bound, by = gram_bound(B, N_PAD, N_DIM)
-    report("phase 2 K1 gram", cases=cases, ms=ms, plain_ms=plain_ms,
+    report("phase 2 K1 gram", cases=cases, device_ops_per_call=ops_per_call,
+           ms=ms, kernel_alone_us=alone_us,
+           share_of_write_bound=bound * 1e3 / alone_us, plain_ms=plain_ms,
            bound_ms=bound, bound_by=by, shape=[B, N_PAD, N_PAD])
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": None}
@@ -266,12 +323,15 @@ def phase_lower_gram(dev):
     t1b = cuda_ms(lambda: gram.fused_masked_gram_batch(*args))
     t2b = cuda_ms(lambda: gram.fused_masked_gram_lower_batch(*args))
     plain_ms = cuda_ms(lambda: gram.fused_masked_gram_lower_plain(*args))
+    _, ops = profiled(lambda: gram.fused_masked_gram_lower_batch(*args), reps=20)
+    alone_us = kernel_us(ops, "gram_kernel")
     n_tiles = N_PAD // gram._SQ_TILE
     share = n_tiles * (n_tiles + 1) / 2 / n_tiles**2
     bound, by = gram_bound(B, N_PAD, N_DIM, share)
     ms = float(np.median([t2a, t2b]))
     report("phase 3 K2 lower gram", cases=cases, ms_turns=[t2a, t2b],
-           k1_ms_turns=[t1a, t1b], plain_ms=plain_ms, bound_ms=bound,
+           k1_ms_turns=[t1a, t1b], kernel_alone_us=alone_us,
+           share_of_write_bound=bound * 1e3 / alone_us, plain_ms=plain_ms, bound_ms=bound,
            bound_by=by, computed_tile_share=share, shape=[B, N_PAD, N_PAD])
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": None}
@@ -290,15 +350,17 @@ def _spd_batch(rng, B, m):
 
 def phase_chol(dev):
     """K3 against the float64 factor (its plain version in float64 on the
-    same inputs), at the tolerances of tests/test_pallas_chol_base.py."""
+    same inputs), at the tolerances of tests/test_pallas_chol_base.py for
+    m <= 32 and those bounds times m / 32 above."""
     import torch
 
     from bask_tpu_torch.ops import chol_base
 
     rng = np.random.RandomState(0)
     cases, worst = [], 0.0
-    for B, m in ((50, 32), (1, 32), (7, 24)):
-        A = torch.tensor(_spd_batch(rng, B, m), dtype=torch.float32, device=dev)
+
+    def check(label, A):
+        m = A.shape[-1]
         L, Xi = chol_base.chol_inv_base(A)
         Lr, _ = chol_base.chol_inv_plain(A.double())
         torch.cuda.synchronize()
@@ -306,18 +368,29 @@ def phase_chol(dev):
         eye = torch.eye(m, dtype=torch.float64, device=dev)
         err_x = float((Xi.double() @ Lr - eye).abs().max())
         tril = bool((L == torch.tril(L)).all() and (Xi == torch.tril(Xi)).all())
-        ok = err_l < 5e-6 and err_x < 5e-5 and tril
-        cases.append({"shape": [B, m, m], "L_err": err_l, "L_bound": 5e-6,
-                      "XL_minus_I": err_x, "XL_bound": 5e-5, "ok": ok})
-        worst = max(worst, err_l)
+        scale = max(1.0, m / 32)
+        ok = err_l < 5e-6 * scale and err_x < 5e-5 * scale and tril
+        cases.append({"case": label, "shape": list(A.shape), "L_err": err_l,
+                      "L_bound": 5e-6 * scale, "XL_minus_I": err_x,
+                      "XL_bound": 5e-5 * scale, "ok": ok})
         if not ok:
             raise AssertionError(f"K3 disagrees with the float64 factor: {cases[-1]}")
-    bad = -torch.eye(32, device=dev).expand(4, 32, 32).contiguous()
+        return err_l
+
+    for B, m in ((50, 32), (50, 64), (50, 128), (1, 32), (7, 24), (7, 100)):
+        A = torch.tensor(_spd_batch(rng, B, m), dtype=torch.float32, device=dev)
+        worst = max(worst, check("contiguous", A))
+    # a diagonal 128-block of the chain's (50, 512, 512) gram, read in place
+    big = chain_gram(dev)
+    block = big[:, 128:256, 128:256]
+    assert not block.is_contiguous()
+    worst = max(worst, check("diagonal block of (50, 512, 512), in place", block))
+    bad = -torch.eye(128, device=dev).expand(4, 128, 128).contiguous()
     Ln, Xn = chol_base.chol_inv_base(bad)
     nan_ok = bool(torch.isnan(Ln[:, -1, -1]).all() and torch.isnan(Xn[:, -1, -1]).all())
     if not nan_ok:
-        raise AssertionError("K3 lost the NaN of a non-PD block")
-    B, m = 50, 32
+        raise AssertionError("K3 lost the NaN of a non-PD block at m = 128")
+    B, m = 50, 128
     A = torch.tensor(_spd_batch(rng, B, m), dtype=torch.float32, device=dev)
     eye = torch.eye(m, device=dev).expand(B, m, m)
 
@@ -327,18 +400,90 @@ def phase_chol(dev):
         return L, torch.linalg.solve_triangular(L, eye, upper=False)
 
     ms = cuda_ms(lambda: chol_base.chol_inv_base(A))
+    _, ops = profiled(lambda: chol_base.chol_inv_base(A), reps=20)
+    alone_us = kernel_us(ops, "chol_inv_kernel")
     plain_ms = cuda_ms(lambda: chol_base.chol_inv_plain(A))
     library_ms = cuda_ms(library)
-    # read A once, write L and L^-1 once; m^3/3 FLOPs of factor and about
-    # m^3/3 of inverse per matrix (the m dependent steps are a latency
-    # floor this count does not see)
-    bound, by = bound_ms(3 * 4 * B * m * m, B * 2 * m**3 / 3)
-    report("phase 4 K3 chol_base", cases=cases, nan_contract=nan_ok, ms=ms,
-           plain_ms=plain_ms, library_ms=library_ms,
+    # read the lower triangle of A once, write L and L^-1 once; m^3/3
+    # FLOPs of factor and about m^3/3 of inverse per matrix (the m
+    # dependent steps are a latency floor this count does not see)
+    bound, by = bound_ms(4 * B * (m * (m + 1) // 2 + 2 * m * m), B * 2 * m**3 / 3)
+    report("phase 4 K3 chol_base", cases=cases, nan_contract_m128=nan_ok, ms=ms,
+           kernel_alone_us=alone_us, plain_ms=plain_ms, library_ms=library_ms,
            library="cholesky_ex + solve_triangular(L, I)", bound_ms=bound,
            bound_by=by, shape=[B, m, m])
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
+
+
+def chain_gram(dev):
+    """The chain's (50, 512, 512) masked gram of the bench data (K1)."""
+    import torch
+
+    from bask_tpu_torch.ops import gram
+    from bask_tpu_torch.ops import kernels as bk
+
+    X, _ = bench_dataset()
+    kernel = bench_kernel(bk)
+    th = 0.05 * np.random.RandomState(1).randn(N_WALKERS // 2, kernel.n_theta)
+    th[:, -1] += np.log(0.05)
+    return gram.fused_masked_gram_batch(
+        gram.match_fusable(kernel), torch.tensor(th, dtype=torch.float32, device=dev),
+        torch.tensor(padded(X), dtype=torch.float32, device=dev),
+        torch.full((N_PAD,), 1e-6, dtype=torch.float32, device=dev), N_OBS,
+    )
+
+
+def phase_factor_ab(dev):
+    """The base-width A/B: one (50, 512, 512) factorization + forward
+    solve + LML terms with 128-wide and 32-wide K3 bases, and
+    ``cholesky_ex`` + ``solve_triangular`` as the yardstick, in turns
+    (128, 32, library, library, 32, 128), by CUDA events."""
+    import torch
+
+    from bask_tpu_torch.ops import chol_base
+    from bask_tpu_torch.ops import fast_cholesky as fc
+
+    Kp = chain_gram(dev)
+    _, y = bench_dataset()
+    yp = np.zeros(N_PAD)
+    yp[:N_OBS] = y
+    yb = torch.tensor(yp, dtype=torch.float32, device=dev).expand(Kp.shape[:-1])
+    default = fc._BASE
+
+    def blocked(base):
+        def run():
+            fc._BASE = base
+            try:
+                return fc.fast_lml_terms(Kp, yb)[1:]
+            finally:
+                fc._BASE = default
+        return run
+
+    def library():
+        L, _ = torch.linalg.cholesky_ex(Kp)
+        w = torch.linalg.solve_triangular(L, yb[..., None], upper=False)[..., 0]
+        return torch.log(L.diagonal(dim1=-2, dim2=-1)).sum(-1), (w * w).sum(-1)
+
+    runs = {"base 128": blocked(128), "base 32": blocked(32), "cholesky_ex": library}
+    terms, launches = {}, {}
+    for name, fn in runs.items():
+        before = chol_base.chol_inv_base.launches
+        terms[name] = [t.double() for t in fn()]
+        launches[name] = chol_base.chol_inv_base.launches - before
+    ref = terms["cholesky_ex"]
+    agree = {name: max(float(((a - b) / b.abs().clamp(min=1.0)).abs().max())
+                       for a, b in zip(t, ref)) for name, t in terms.items()}
+    turns = {name: [] for name in runs}
+    for name in ["base 128", "base 32", "cholesky_ex", "cholesky_ex", "base 32", "base 128"]:
+        turns[name].append(cuda_ms(runs[name]))
+    ops = {name: profiled(fn)[0] for name, fn in runs.items()}
+    report("phase 4b factorization A/B", shape=list(Kp.shape), ms_turns=turns,
+           median_ms={k: float(np.median(v)) for k, v in turns.items()},
+           k3_launches=launches, device_ops=ops,
+           rel_diff_vs_cholesky_ex=agree, base_in_use=default)
+    if not all(v <= 1e-4 for v in agree.values()):
+        raise AssertionError(f"the factorizations disagree: {agree}")
 
 
 def phase_lml(dev):
@@ -596,6 +741,7 @@ def main() -> int:
     k1 = phase_gram(dev)
     k2 = phase_lower_gram(dev)
     k3 = phase_chol(dev)
+    phase_factor_ab(dev)
     phase_lml(dev)
     phase_optimizer(dev)
     launches = phase_warped_optimizer(dev)

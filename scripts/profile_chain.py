@@ -10,7 +10,8 @@ operations (kernels, copies, fills) one call issues:
 
 * one half-ensemble log-probability (50 walkers): unwarped with K1,
   warped with K1 (LOWER_GRAM off) and warped with K2 (LOWER_GRAM on),
-  with the device time of the gram kernel alone (K1 or K2) in that call;
+  with the device time of the gram kernel alone (K1 or K2) and of each
+  K3 launch in that call;
 * the warp of the training inputs alone, (50, 512, 15), and the unwarp
   of a 500-point candidate grid, (500, 15);
 * chain steps (demix moves): unwarped, warped with LOWER_GRAM off and
@@ -43,7 +44,8 @@ TURN_ROUNDS = 3
 
 def device_ops(fn):
     """(device operations issued, device microseconds, microseconds of the
-    gram kernels K1/K2 among them, wall microseconds) of one ``fn()``."""
+    gram kernels K1/K2 among them, microseconds of the K3 launches among
+    them, wall microseconds) of one ``fn()``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -56,7 +58,8 @@ def device_ops(fn):
     wall_us = (time.perf_counter() - t0) * 1e6
     ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     gram_us = [e.device_time for e in ops if "gram_kernel" in e.name]
-    return len(ops), float(sum(e.device_time for e in ops)), gram_us, wall_us
+    chol_us = [e.device_time for e in ops if "chol_inv_kernel" in e.name]
+    return len(ops), float(sum(e.device_time for e in ops)), gram_us, chol_us, wall_us
 
 
 def main() -> int:
@@ -108,9 +111,10 @@ def run(dev) -> None:
 
     def measure(name, fn, **extra):
         ms = cs.cuda_ms(fn, reps=20)
-        ops, dev_us, gram_us, _ = device_ops(fn)
+        ops, dev_us, gram_us, chol_us, _ = device_ops(fn)
         print(json.dumps({"measure": name, "ms": ms, "device_ops": ops,
-                          "device_us": dev_us, "gram_kernel_us": gram_us, **extra}),
+                          "device_us": dev_us, "gram_kernel_us": gram_us,
+                          "k3_kernel_us": chol_us, **extra}),
               flush=True)
 
     measure("log-prob, unwarped, K1", lambda: plain_lp(half[:, : kernel.n_theta]),
@@ -152,7 +156,7 @@ def run(dev) -> None:
         for name in list(configs) + list(configs)[::-1]:
             turns[name].append(step_ms(name))
     for name in configs:
-        ops, dev_us, _, wall_us = device_ops(lambda: chain(name, 5, seed=1))
+        ops, dev_us, _, _, wall_us = device_ops(lambda: chain(name, 5, seed=1))
         print(json.dumps({
             "measure": f"chain step, {name}", "ms_per_step_turns": turns[name],
             "median_ms": float(np.median(turns[name])), "steps": N_STEPS, "device_ops_per_step": ops / 5,

@@ -1,7 +1,9 @@
-"""K3, the batched base Cholesky + inverse: its plain PyTorch version
-against the JAX package's Pallas kernel in interpret mode and against the
-float64 factor, the NaN contract and the CPU dispatch of the wrapper.
-The CUDA kernel itself is tested in tests/test_torch_cuda.py."""
+"""K3, the batched Cholesky + inverse of blocks up to 128 wide: its plain
+PyTorch version against the JAX package's Pallas kernel in interpret mode,
+against its step function run eagerly and against the float64 factor,
+the strided (in place) input, the NaN contract and the CPU dispatch of
+the wrapper. The CUDA kernel itself is tested in
+tests/test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -49,6 +51,36 @@ def test_float64_plain_is_exact():
     np.testing.assert_allclose(X @ L, np.broadcast_to(np.eye(32), A.shape), atol=1e-10)
 
 
+@pytest.mark.parametrize("m", [64, 128])
+def test_plain_matches_chol_inv_steps_f64(m):
+    """At the widths the blocked factorization now hands K3, in float64:
+    against the JAX package's step chain run eagerly (no Pallas, no jit)
+    and against numpy's factor."""
+    A = _spd_batch(np.random.RandomState(4), 3, m).astype(np.float64)
+    L, X = (t.numpy() for t in chol_base.chol_inv_plain(torch.from_numpy(A)))
+    Lj, Xj = (np.asarray(t) for t in pcb.chol_inv_steps(jnp.asarray(A)))
+    assert Lj.dtype == np.float64
+    np.testing.assert_allclose(L, Lj, rtol=1e-12, atol=1e-14)
+    np.testing.assert_allclose(X, Xj, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(L, np.linalg.cholesky(A), rtol=1e-10, atol=1e-13)
+    np.testing.assert_allclose(X @ L, np.broadcast_to(np.eye(m), A.shape), atol=1e-10)
+    assert np.array_equal(np.tril(L), L) and np.array_equal(np.tril(X), X)
+
+
+def test_strided_block_is_read_in_place_lower_only():
+    """A diagonal 128-block of a (B, 512, 512) batch, upper triangle NaN:
+    the wrapper takes the strided view and reads only the lower
+    triangle, so it gives what the lower triangle alone gives."""
+    big = _spd_batch(np.random.RandomState(5), 2, 512)
+    big[:, np.triu_indices(512, 1)[0], np.triu_indices(512, 1)[1]] = np.nan
+    block = torch.from_numpy(big)[:, 128:256, 128:256]
+    assert not block.is_contiguous()
+    L, X = chol_base.chol_inv_base(block)
+    Lc, Xc = chol_base.chol_inv_base(torch.tril(block.contiguous()))
+    assert torch.isfinite(L).all() and torch.isfinite(X).all()
+    assert torch.equal(L, Lc) and torch.equal(X, Xc)
+
+
 def test_leading_batch_dims():
     A = _spd_batch(np.random.RandomState(2), 6, 16).reshape(2, 3, 16, 16)
     L, X = chol_base.chol_inv_base(torch.from_numpy(A))
@@ -58,13 +90,14 @@ def test_leading_batch_dims():
     np.testing.assert_array_equal(X.reshape(6, 16, 16).numpy(), Xf.numpy())
 
 
-def test_non_pd_propagates_nan():
+@pytest.mark.parametrize("m", [32, 128])
+def test_non_pd_propagates_nan(m):
     """rsqrt of a negative pivot -> NaN reaching the factor's last entry:
     the branchless failed-factorization -> -inf LML contract."""
-    A = -np.broadcast_to(np.eye(32, dtype=np.float32), (4, 32, 32)).copy()
+    A = -np.broadcast_to(np.eye(m, dtype=np.float32), (4, m, m)).copy()
     L, X = chol_base.chol_inv_base(torch.from_numpy(A))
     assert torch.isnan(L[:, -1, -1]).all() and torch.isnan(X[:, -1, -1]).all()
-    Lg, _ = chol_base.chol_inv_base(torch.from_numpy(_spd_batch(np.random.RandomState(1), 4, 32)))
+    Lg, _ = chol_base.chol_inv_base(torch.from_numpy(_spd_batch(np.random.RandomState(1), 4, m)))
     assert torch.isfinite(Lg).all()
 
 

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on a card: K1 and K2 (gram, full and lower
-128-tiles) and K3 (base Cholesky + inverse) against their plain versions,
-their launch counters, the wrappers' refusals, and the batched LML
-through the kernels (with K2, bit-equal to the K1 run).
+128-tiles; every layout of thetas the in-kernel packing reads) and K3
+(Cholesky + inverse of blocks up to 128 wide, also read in place)
+against their plain versions, their launch counters, K1's one device
+operation per call, the wrappers' refusals, and the batched LML through
+the kernels (with K2, bit-equal to the K1 run).
 
 Every test here needs a CUDA card and skips without one. The file
 imports no JAX, so it also runs where only the port is installed:
@@ -65,30 +67,99 @@ def test_gram_kernel_matches_plain(dev, nu, per_walker):
     assert torch.equal(K[:, 500:, 500:], torch.eye(12, device=dev).expand(8, 12, 12))
 
 
+SPEC_VARIANTS = {  # spec, number of thetas
+    "no ConstantKernel": (gram.FusedSpec(2.5, 15, False, True), 16),
+    "no WhiteKernel": (gram.FusedSpec(2.5, 15, True, False), 16),
+    "isotropic": (gram.FusedSpec(2.5, 1, True, True), 3),
+    "isotropic, RBF, alone": (gram.FusedSpec(math.inf, 1, False, False), 1),
+}
+
+
+@pytest.mark.parametrize("variant", sorted(SPEC_VARIANTS))
+def test_gram_kernel_packs_every_spec_variant(dev, variant):
+    """The kernel forms amp, noise and 1/ls from thetas itself: against
+    the plain version (which packs with ``_pack_params``) in float64."""
+    spec, n_theta = SPEC_VARIANTS[variant]
+    _, X, alpha = _gram_inputs(dev, False)
+    thetas = torch.tensor(
+        np.log(0.4) + 0.2 * np.random.RandomState(7).randn(8, n_theta),
+        dtype=torch.float32, device=dev,
+    )
+    K = gram.fused_masked_gram_batch(spec, thetas, X, alpha, 500)
+    ref = gram.fused_masked_gram_plain(spec, thetas.double(), X.double(), alpha.double(), 500)
+    torch.cuda.synchronize()
+    assert torch.isfinite(K).all()
+    assert float((K.double() - ref).abs().max()) <= 4e-6 * float(ref.abs().max())
+
+
+def test_gram_wrapper_issues_one_device_operation(dev):
+    """The packing runs inside the kernel: one call, one device operation,
+    also for a column slice of a wider thetas array (strided rows)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    thetas, X, alpha = _gram_inputs(dev, False)
+    wide = torch.cat([thetas, torch.zeros_like(thetas[:, :4])], dim=1)
+    spec = gram.match_fusable(KERNEL)
+    for th in (thetas, wide[:, : KERNEL.n_theta]):
+        gram.fused_masked_gram_batch(spec, th, X, alpha, 500)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            K = gram.fused_masked_gram_batch(spec, th, X, alpha, 500)
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(ops) == 1, [e.name for e in ops]
+        assert torch.equal(K, gram.fused_masked_gram_batch(spec, thetas, X, alpha, 500))
+
+
 def _spd_batch(rng, B, m):
     Xp = rng.uniform(size=(m, 5))
     K0 = np.exp(-0.5 * ((Xp[:, None] - Xp[None]) ** 2).sum(-1) / 0.3**2) + 1e-2 * np.eye(m)
     return np.broadcast_to(K0, (B, m, m)).copy() * (1.0 + 0.1 * rng.rand(B))[:, None, None]
 
 
-@pytest.mark.parametrize("B,m", [(50, 32), (1, 32), (7, 24), (3, 16), (200, 32)])
-def test_chol_kernel_matches_oracle(dev, B, m):
+def _check_chol(dev, A):
     """The bounds of tests/test_pallas_chol_base.py against the float64
-    factor."""
-    A = torch.tensor(_spd_batch(np.random.RandomState(0), B, m), dtype=torch.float32, device=dev)
+    factor for m <= 32, times m / 32 above (the steps add roundings)."""
+    m = A.shape[-1]
     before = chol_base.chol_inv_base.launches
     L, X = chol_base.chol_inv_base(A)
     torch.cuda.synchronize()
     assert chol_base.chol_inv_base.launches == before + 1
+    assert L.is_contiguous() and X.is_contiguous() and L.shape == A.shape
     Lr, _ = chol_base.chol_inv_plain(A.double())
-    assert float((L.double() - Lr).abs().max()) < 5e-6
+    scale = max(1.0, m / 32)
+    assert float((L.double() - Lr).abs().max()) < 5e-6 * scale
     eye = torch.eye(m, dtype=torch.float64, device=dev)
-    assert float((X.double() @ Lr - eye).abs().max()) < 5e-5
+    assert float((X.double() @ Lr - eye).abs().max()) < 5e-5 * scale
     assert torch.equal(L, torch.tril(L)) and torch.equal(X, torch.tril(X))
 
 
-def test_chol_kernel_nan_contract(dev):
-    bad = -torch.eye(32, device=dev).expand(4, 32, 32).contiguous()
+@pytest.mark.parametrize(
+    "B,m",
+    [(50, 32), (1, 32), (7, 24), (3, 16), (200, 32), (50, 64), (50, 96), (50, 128), (7, 100)],
+)
+def test_chol_kernel_matches_oracle(dev, B, m):
+    _check_chol(dev, torch.tensor(_spd_batch(np.random.RandomState(0), B, m),
+                                  dtype=torch.float32, device=dev))
+
+
+def test_chol_kernel_reads_a_diagonal_block_in_place(dev):
+    """A 128-block of a (B, 512, 512) SPD batch, its upper triangle
+    overwritten with NaN: the kernel reads the lower triangle where it
+    lies, and gives what it gives on a contiguous copy of the block."""
+    big = torch.tensor(_spd_batch(np.random.RandomState(1), 6, 512), dtype=torch.float32, device=dev)
+    upper = torch.ones(512, 512, dtype=torch.bool, device=dev).triu(1)
+    big = torch.where(upper, math.nan, big)
+    block = big[:, 256:384, 256:384]
+    assert not block.is_contiguous()
+    _check_chol(dev, torch.tril(block.contiguous()))
+    for a, b in zip(chol_base.chol_inv_base(block), chol_base.chol_inv_base(block.contiguous())):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m", [32, 128])
+def test_chol_kernel_nan_contract(dev, m):
+    bad = -torch.eye(m, device=dev).expand(4, m, m).contiguous()
     L, X = chol_base.chol_inv_base(bad)
     assert torch.isnan(L[:, -1, -1]).all() and torch.isnan(X[:, -1, -1]).all()
 
@@ -107,7 +178,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         chol_base.chol_inv_base(torch.eye(8, dtype=torch.float64, device=dev))
     with pytest.raises(ValueError):
-        chol_base.chol_inv_base(torch.eye(40, device=dev))
+        chol_base.chol_inv_base(torch.eye(129, device=dev))
+    with pytest.raises(TypeError):
+        gram.fused_masked_gram_batch(spec, thetas.double(), X, alpha, 500)
 
 
 def test_batched_lml_runs_both_kernels(dev):

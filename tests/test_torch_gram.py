@@ -111,6 +111,32 @@ def test_padding_layout():
     )
 
 
+@pytest.mark.parametrize("has_const", [False, True])
+@pytest.mark.parametrize("has_white", [False, True])
+@pytest.mark.parametrize("n_ls", [1, 4])
+def test_pack_params_matches_jax(has_const, has_white, n_ls):
+    """The packed rows [amp, noise, 1/ls...] of every spec layout that the
+    CUDA kernel now forms itself from thetas (it reads the same flags),
+    against the JAX package's _pack_params: float32, within the 2 ulp of
+    two exp implementations."""
+    import bask_tpu.ops.pallas_gram as pg
+
+    d, B = 4, 5
+    n_theta = int(has_const) + n_ls + int(has_white)
+    thetas = np.random.RandomState(9).randn(B, n_theta).astype(np.float32)
+    spec = gram.FusedSpec(nu=2.5, n_ls=n_ls, has_const=has_const, has_white=has_white)
+    ours = gram._pack_params(spec, torch.from_numpy(thetas), d).numpy()
+    ref = np.asarray(
+        pg._pack_params(pg.FusedSpec(*spec), jnp.asarray(thetas), B, d)
+    )[:, 0, :]
+    assert ours.shape == ref.shape == (B, d + 2) and ours.dtype == np.float32
+    np.testing.assert_allclose(ours, ref, rtol=2.4e-7, atol=0)
+    if not has_const:
+        assert (ours[:, 0] == 1).all()
+    if not has_white:
+        assert (ours[:, 1] == 0).all()
+
+
 def test_match_fusable():
     for k in CASES:
         assert gram.match_fusable(convert.kernel_spec(k)) is not None

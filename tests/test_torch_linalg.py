@@ -31,9 +31,11 @@ def _spd(rng, b, n, jitter=1e-3):
     return A @ np.swapaxes(A, -1, -2) / n + jitter * np.eye(n)
 
 
-@pytest.mark.parametrize("n", [64, 256, 320])
+@pytest.mark.parametrize("n", [64, 256, 320, 576])
 def test_block_cholesky_and_solves_f64(n):
-    """320 has a ragged last panel (nb = 128)."""
+    """320 has a ragged last panel (nb = 128); 576 has 256, 256 and a
+    ragged 64 panel, so 128-wide K3 bases split the 256 panels once and
+    factor the 64 panel whole."""
     rng = np.random.RandomState(0)
     A = _spd(rng, 2, n)
     y = rng.randn(2, n)
