@@ -16,11 +16,14 @@ from .acquisition import (
     ThompsonSampling,
     TopTwoEI,
     VarianceReduction,
+    evaluate_acquisitions,
     evaluate_acquisitions_fused,
 )
 from .models.bayesgpr import BayesGPR
 from .optimizer import Optimizer
 from .space import Categorical, Integer, Real, Space
+from .utils.progress import get_progress_bar
+from .utils.result import create_result, expected_minimum
 from .utils.validation import validate_zeroone
 
 __all__ = [
@@ -34,10 +37,14 @@ __all__ = [
     "ThompsonSampling",
     "VarianceReduction",
     "PVRS",
+    "evaluate_acquisitions",
     "evaluate_acquisitions_fused",
     "Space",
     "Real",
     "Integer",
     "Categorical",
+    "get_progress_bar",
+    "create_result",
+    "expected_minimum",
     "validate_zeroone",
 ]

@@ -20,8 +20,17 @@ so one seed picks the same chain rows in both packages; the randoms
 themselves (Thompson normals, MES uniforms) come from torch generators
 seeded from it, and the tests hand JAX's draws to the port instead.
 
-Not ported yet: the gradient polish and the legacy multi-acquisition
-``evaluate_acquisitions``.
+:func:`evaluate_acquisitions` is the legacy dispatcher of several
+acquisitions at once; for one acquisition it computes what
+:func:`evaluate_acquisitions_fused` does, bit for bit. It serves the
+acquisitions the fused pass returns ``None`` for (a custom class that is
+neither FullGP, uncertainty nor sample acquisition).
+
+:func:`polish_acquisition` refines the grid argmax by a few Adam steps on
+the acquisition surface from the top grid points: the per-draw grams
+(K1) and factors (K3 bases) are computed once under ``torch.no_grad()``
+and enter as constants; autograd differentiates the predictions in the
+candidate points only.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import torch
 
 from .models import gp as gpc
 from .ops.linalg import augmented_quadform
+from .utils.stats import norm_cdf, norm_logcdf, norm_pdf
 
 __all__ = [
     "Acquisition",
@@ -48,10 +58,11 @@ __all__ = [
     "ThompsonSampling",
     "VarianceReduction",
     "PVRS",
+    "evaluate_acquisitions",
     "evaluate_acquisitions_fused",
+    "polish_acquisition",
+    "polish_noop_reason",
 ]
-
-_LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
 class Acquisition(ABC):
@@ -86,20 +97,8 @@ class FullGPAcquisition(Acquisition, ABC):
         ...
 
 
-def _norm_pdf(x):
-    return torch.exp(-0.5 * x * x) / math.sqrt(2.0 * math.pi)
-
-
-def _norm_logcdf(x):
-    """log Phi(x): log(ndtr) above -10, the asymptotic log(phi(x) / -x)
-    below, as in the JAX package."""
-    safe = torch.special.ndtr(torch.clamp(x, min=-10.0))
-    left = -0.5 * x * x - _LOG_SQRT_2PI - torch.log(-torch.clamp(x, max=-10.0))
-    return torch.where(x > -10.0, torch.log(safe), left)
-
-
 def _ei_term(z):
-    return z * torch.special.ndtr(z) + _norm_pdf(z)
+    return z * norm_cdf(z) + norm_pdf(z)
 
 
 class ExpectedImprovement(UncertaintyAcquisition):
@@ -168,7 +167,7 @@ class MaxValueSearch(UncertaintyAcquisition):
         mean_q, std_q = mean[..., None, :], std[..., None, :]
         for _ in range(72):
             mid = 0.5 * (lo + hi)
-            cdf_max = torch.exp(_norm_logcdf((mid[..., None] - mean_q) / std_q).sum(-1))
+            cdf_max = torch.exp(norm_logcdf((mid[..., None] - mean_q) / std_q).sum(-1))
             below = cdf_max < q
             lo, hi = torch.where(below, mid, lo), torch.where(below, hi, mid)
         pct = 0.5 * (lo + hi)
@@ -178,8 +177,8 @@ class MaxValueSearch(UncertaintyAcquisition):
         max_values = -torch.log(-torch.log(u)) * beta + alpha  # (..., n_min)
         gamma = (max_values[..., None, :] - mean[..., :, None]) / std[..., :, None]
         mi = (
-            gamma * _norm_pdf(gamma) / (2.0 * torch.clamp(torch.special.ndtr(gamma), min=1e-16))
-            - _norm_logcdf(gamma)
+            gamma * norm_pdf(gamma) / (2.0 * torch.clamp(norm_cdf(gamma), min=1e-16))
+            - norm_logcdf(gamma)
         )
         return mi.mean(-1)
 
@@ -212,13 +211,19 @@ def _fused_fullgp_vals(kernel, theta, post, data, Xw, z, white_idx):
     the variance explained at the probes by each candidate. ``z=None``
     probes the whole grid (VarianceReduction). ``data`` and the
     candidates ``Xw`` are in the consensus-warped space."""
-    if z is None:
-        P = Xw
-    else:
-        theta_nf = gpc.noise_free_theta(kernel, theta, white_idx)
-        ts = gpc.sample_y(kernel, theta_nf, post, data, Xw, z)
-        P = Xw[torch.argmin(ts, dim=0)]
+    P = _thompson_probes(kernel, theta, post, data, Xw, z, white_idx)
     return _variance_explained_body(kernel, theta, post, data, Xw, P)
+
+
+def _thompson_probes(kernel, theta, post, data, Xw, z, white_idx):
+    """PVRS's probes: the argmins over ``Xw`` of the noise-free consensus
+    GP's draws for the normals ``z`` (len(Xw), n_thompson); ``Xw``
+    itself for ``z=None`` (VarianceReduction)."""
+    if z is None:
+        return Xw
+    theta_nf = gpc.noise_free_theta(kernel, theta, white_idx)
+    ts = gpc.sample_y(kernel, theta_nf, post, data, Xw, z)
+    return Xw[torch.argmin(ts, dim=0)]
 
 
 class VarianceReduction(FullGPAcquisition):
@@ -277,23 +282,70 @@ def _fused_marginal_vals(rows, data, X, kernel, white_idx, n_real, acq, kwargs, 
     return acq(mu_s, std_s, **kwargs)
 
 
+def _rng(random_state):
+    if isinstance(random_state, np.random.RandomState):
+        return random_state
+    return np.random.RandomState(random_state)
+
+
+def _marginal_values(X, gpr, acqs, n_samples, rs, kwargs):
+    """(S, m) host values of each uncertainty or sample acquisition in
+    ``acqs`` (``None`` for the others) over ``n_samples`` distinct chain
+    rows. Consumes ``rs`` in the JAX package's order: the rows, a seed
+    for the per-draw function samples (the Thompson normals), a seed for
+    the acquisitions' own randoms (a fresh generator per acquisition,
+    the one MES draws from)."""
+    idx = rs.choice(len(gpr.chain_), replace=False, size=n_samples)
+    sample_seed = rs.randint(0, 2**31 - 1)
+    acq_seed = rs.randint(0, 2**31 - 1)
+    args = (
+        gpr._tensor(gpr.chain_[idx]), gpr._data, gpr._tensor(X), gpr._spec,
+        gpr.white_index_, len(gpr._y_orig),
+    )
+    z = None
+    if any(isinstance(a, SampleAcquisition) for a in acqs):
+        z = gpr._normals(sample_seed, (n_samples, X.shape[0], 1))
+    out = []
+    for acq in acqs:
+        if isinstance(acq, UncertaintyAcquisition):
+            gen = torch.Generator(device=gpr.device)
+            gen.manual_seed(acq_seed)
+            kw = {"generator": gen, **kwargs}
+        elif isinstance(acq, SampleAcquisition):
+            kw = kwargs
+        else:
+            out.append(None)
+            continue
+        vals = _fused_marginal_vals(*args, acq, kw, gpr._n_warp(), z)
+        out.append(vals.cpu().numpy())
+    return out
+
+
+def _finite_mean(vals, n_samples):
+    """Sum of the draws (rows) whose values are all finite, over the
+    total draw count, as in the JAX package."""
+    finite = np.all(np.isfinite(vals), axis=1)
+    if not finite.any():
+        return 0.0
+    return vals[finite].sum(axis=0) / n_samples
+
+
 @torch.no_grad()
 def evaluate_acquisitions_fused(X, gpr, acq, n_samples: int = 10, random_state=None, **kwargs):
-    """Evaluate ONE acquisition on the candidate grid X: (1, n_candidates).
+    """Evaluate ONE acquisition on the candidate grid X: (1, n_candidates),
+    or ``None`` for an acquisition that is neither FullGP, uncertainty
+    nor sample acquisition (the caller then takes
+    :func:`evaluate_acquisitions`, as in the JAX package).
 
-    A FullGP acquisition scores the consensus model; an uncertainty or
-    sample acquisition is averaged over ``n_samples`` distinct chain rows,
-    with draws that give non-finite values dropped. The host RNG is
-    consumed as in the JAX package: the row choice, then a seed for the
-    per-draw function samples (Thompson sampling) and a seed for the
-    acquisition's own randoms (the generator MES draws from).
+    A FullGP acquisition is called on the consensus model as
+    ``acq(X, gpr, random_state=rs, **kwargs)``; for a custom FullGP class
+    that is what the JAX package's legacy route computes (its fused pass
+    declines such a class). An uncertainty or sample acquisition is
+    averaged over ``n_samples`` distinct chain rows, with draws that give
+    non-finite values dropped.
     """
     X = np.atleast_2d(np.asarray(X, dtype=float))
-    rs = (
-        random_state
-        if isinstance(random_state, np.random.RandomState)
-        else np.random.RandomState(random_state)
-    )
+    rs = _rng(random_state)
     out = np.zeros((1, X.shape[0]))
     if isinstance(acq, FullGPAcquisition):
         vals = acq(X, gpr, random_state=rs, **kwargs)
@@ -301,24 +353,245 @@ def evaluate_acquisitions_fused(X, gpr, acq, n_samples: int = 10, random_state=N
             out[0] = vals
         return out
     if not isinstance(acq, (UncertaintyAcquisition, SampleAcquisition)):
-        raise TypeError(f"unsupported acquisition {type(acq).__name__}")
+        return None
     if n_samples <= 0:
         return out
-    idx = rs.choice(len(gpr.chain_), replace=False, size=n_samples)
-    sample_seed = rs.randint(0, 2**31 - 1)
-    acq_seed = rs.randint(0, 2**31 - 1)
-    z = None
-    if isinstance(acq, SampleAcquisition):
-        z = gpr._normals(sample_seed, (n_samples, X.shape[0], 1))
-    else:
-        gen = torch.Generator(device=gpr.device)
-        gen.manual_seed(acq_seed)
-        kwargs = {"generator": gen, **kwargs}
-    vals = _fused_marginal_vals(
-        gpr._tensor(gpr.chain_[idx]), gpr._data, gpr._tensor(X), gpr._spec,
-        gpr.white_index_, len(gpr._y_orig), acq, kwargs, gpr._n_warp(), z,
-    ).cpu().numpy()
-    finite = np.all(np.isfinite(vals), axis=1)
-    if finite.any():
-        out[0] += vals[finite].sum(axis=0) / n_samples
+    (vals,) = _marginal_values(X, gpr, (acq,), n_samples, rs, kwargs)
+    out[0] += _finite_mean(vals, n_samples)
     return out
+
+
+@torch.no_grad()
+def evaluate_acquisitions(
+    X, gpr, acquisition_functions=None, n_samples: int = 10, progress: bool = False,
+    random_state=None, **kwargs,
+):
+    """Evaluate several acquisitions on the candidate grid X, marginalized
+    over ``n_samples`` chain rows: (n_acqs, n_candidates).
+
+    FullGP acquisitions score the consensus model once each (in order,
+    drawing from the one host RNG); uncertainty and sample acquisitions
+    share one set of rows and are averaged over the draws, non-finite
+    draws dropped; any other acquisition leaves its row at 0. For one
+    acquisition this is :func:`evaluate_acquisitions_fused`'s result, bit
+    for bit: the host RNG is consumed in the same order.
+    """
+    from .utils.progress import get_progress_bar
+
+    X = np.atleast_2d(np.asarray(X, dtype=float))
+    acqs = tuple(acquisition_functions)
+    out = np.zeros((len(acqs), X.shape[0]))
+    rs = _rng(random_state)
+    for i, acq in enumerate(acqs):
+        if isinstance(acq, FullGPAcquisition):
+            vals = acq(X, gpr, random_state=rs, **kwargs)
+            if np.all(np.isfinite(vals)):
+                out[i] = vals
+    marginal = any(isinstance(a, (UncertaintyAcquisition, SampleAcquisition)) for a in acqs)
+    if not marginal or n_samples <= 0:
+        return out
+    pbar = get_progress_bar(progress, len(acqs))
+    for i, vals in enumerate(_marginal_values(X, gpr, acqs, n_samples, rs, kwargs)):
+        if vals is not None:
+            out[i] += _finite_mean(vals, n_samples)
+        pbar.update(1)
+    pbar.close()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Gradient-polished argmax
+# ---------------------------------------------------------------------------
+#
+# Supported: the pointwise mu/std acquisitions (EI, TopTwoEI,
+# Expectation, LCB) and PVRS/VarianceReduction. Excluded: MES (its value
+# at x depends on min-value samples fitted to the whole grid) and
+# Thompson sampling (a fresh function draw per x is no coherent surface).
+
+
+def _adam_ascent(value_fn, X0, n_steps: int, lr: float):
+    """Best-tracking Adam ascent of ``value_fn`` over [0, 1]^d from each
+    row of ``X0`` (k, d). ``value_fn`` maps (k, d) to (k,), each value a
+    function of its own row, so one backward pass of the summed values
+    gives every start's gradient; non-finite gradients (sqrt at distance
+    0) count as 0. Returns ``(x_best, v_best)`` per start, never worse
+    than the start's own value under the same ``value_fn``."""
+
+    def value_and_grad(x):
+        x = x.detach().requires_grad_(True)
+        val = value_fn(x)
+        (g,) = torch.autograd.grad(val.sum(), x)
+        return val.detach(), torch.where(torch.isfinite(g), g, 0.0)
+
+    def track(x, val, xb, vb):
+        better = val > vb
+        xb = torch.where(better[:, None], x, xb)
+        vb = torch.maximum(torch.where(torch.isfinite(val), val, -math.inf), vb)
+        return xb, vb
+
+    x = xb = X0
+    m = torch.zeros_like(X0)
+    v = torch.zeros_like(X0)
+    vb = torch.full(X0.shape[:1], -math.inf, dtype=X0.dtype, device=X0.device)
+    for t in range(n_steps):
+        val, g = value_and_grad(x)
+        xb, vb = track(x, val, xb, vb)
+        m = 0.9 * m + 0.1 * g
+        v = 0.999 * v + 0.001 * (g * g)
+        mh = m / (1.0 - 0.9 ** (t + 1.0))
+        vh = v / (1.0 - 0.999 ** (t + 1.0))
+        x = torch.clamp(x + lr * mh / (torch.sqrt(vh) + 1e-8), 0.0, 1.0)
+    with torch.no_grad():
+        val = value_fn(x)
+    return track(x, val, xb, vb)
+
+
+def _polish_fullgp_vals(kernel, theta, post, data, X0, Xw_pool, warp_params, z, white_idx,
+                        n_steps, lr):
+    """Adam-polish the PVRS (normals ``z``) or VarianceReduction
+    (``z=None``) score from ``X0`` (transformed space). The probes come
+    from ``Xw_pool`` (consensus-warped), so the values compare only with
+    each other: the caller includes the grid argmax among the starts."""
+    from .models import warping as wp
+
+    with torch.no_grad():
+        P = _thompson_probes(kernel, theta, post, data, Xw_pool, z, white_idx)
+
+    def value(x):
+        xw = x if warp_params is None else wp.warp(x, *warp_params)
+        return _variance_explained_body(kernel, theta, post, data, xw, P)
+
+    return _adam_ascent(value, X0, n_steps, lr)
+
+
+def _polish_marginal_vals(rows, data, X0, X_pool, kernel, white_idx, n_real, n_warp, acq,
+                          kwargs, n_steps, lr, n_samples):
+    """Adam-polish a marginalized pointwise acquisition from ``X0``.
+
+    The per-draw grams and factorizations are made once, without
+    gradients; each step then predicts the k starts under every draw.
+    EI's ``y_opt = min(mu)`` and TopTwoEI's best point are frozen per
+    draw from one prediction pass over ``X_pool`` (the caller's grid), so
+    the ascent climbs the surface the grid argmax saw.
+    """
+    from .models import warping as wp
+
+    with torch.no_grad():
+        theta, d, _ = gpc.warped_draws(rows, data, n_warp)
+        grams = gpc.fused_marginal_grams(kernel, theta, d, n_real=n_real)
+        post, invs = gpc.posterior_and_invs(kernel, theta, d, Kp=grams)
+        theta_nf = gpc.noise_free_theta(kernel, theta, white_idx)
+        warp_params = wp.split_warp_params(rows, n_warp)[1:] if n_warp else None
+
+    def predict_at(Xq):  # (k, d) -> (S, k) mean and std
+        if warp_params is not None:
+            Xq = wp.warp(Xq, *warp_params)
+        return gpc.predict(kernel, theta_nf, post, d, Xq, return_std=True, invs=invs)
+
+    kw = dict(kwargs)
+    ei_like = isinstance(acq, ExpectedImprovement)  # TopTwoEI included
+    with torch.no_grad():
+        mu_pool, std_pool = predict_at(X_pool)
+        if ei_like:
+            y_opt = kw.pop("y_opt", None)
+            if y_opt is None:
+                y_opt_s = mu_pool.min(dim=-1).values
+            else:
+                y_opt_s = torch.full(mu_pool.shape[:1], float(y_opt), dtype=X0.dtype,
+                                     device=X0.device)
+            y_opt_s = y_opt_s[:, None]
+        if isinstance(acq, TopTwoEI):
+            ok = std_pool > 0
+            safe = torch.where(ok, std_pool, 1.0)
+            ei = torch.where(ok, _ei_term((y_opt_s - mu_pool) / safe) * safe, 0.0)
+            best = torch.argmax(ei, dim=-1, keepdim=True)
+            mu_b, std_b = mu_pool.gather(-1, best), std_pool.gather(-1, best)
+
+    def value(x):
+        mu, std = predict_at(x)
+        ok = std > 0
+        if isinstance(acq, TopTwoEI):
+            safe_outer = torch.where(ok, torch.sqrt(std**2 + std_b**2), 1.0)
+            vals = torch.where(ok, safe_outer * _ei_term((mu_b - mu) / safe_outer), 0.0)
+        elif ei_like:
+            safe = torch.where(ok, std, 1.0)
+            vals = torch.where(ok, _ei_term((y_opt_s - mu) / safe) * safe, 0.0)
+        else:
+            vals = acq(mu, std, **kw)
+        # as the grid dispatcher: finite draws summed, over the total count
+        return torch.where(torch.isfinite(vals), vals, 0.0).sum(0) / n_samples
+
+    return _adam_ascent(value, X0, n_steps, lr)
+
+
+def polish_noop_reason(acq, n_samples: int = 10, **kwargs):
+    """Why :func:`polish_acquisition` returns ``None`` for this
+    configuration, as a sentence, or ``None`` where polish runs."""
+    if isinstance(acq, FullGPAcquisition):
+        if type(acq) in (PVRS, VarianceReduction):
+            return None
+        return (
+            f"custom FullGPAcquisition {type(acq).__name__} has no "
+            "known differentiable surface (only PVRS/VarianceReduction "
+            "are polished)"
+        )
+    if not isinstance(acq, UncertaintyAcquisition):
+        return (
+            f"{type(acq).__name__} is not an Uncertainty/FullGP "
+            "acquisition; no pointwise surface to ascend"
+        )
+    if isinstance(acq, MaxValueSearch):
+        return (
+            "MES couples values to grid-wide min-value samples; no "
+            "pointwise surface to ascend"
+        )
+    if n_samples <= 0:
+        return (
+            "n_samples=0 hyperposterior draws requested (pass "
+            "n_samples>0 to tell/run so the marginalized surface exists)"
+        )
+    return None
+
+
+def polish_acquisition(
+    X0, gpr, acq, n_samples: int = 10, random_state=None, n_steps: int = 20,
+    lr: float = 0.05, X_pool=None, **kwargs,
+):
+    """Gradient-ascent refinement of acquisition argmax candidates.
+
+    ``X0`` (k, d) are starts in the transformed space (include the grid
+    argmax: the values compare only within this call's own draws).
+    Returns ``(X_polished, values)`` as NumPy, or ``None`` where
+    :func:`polish_noop_reason` gives a reason. ``X_pool`` is the grid the
+    PVRS probes and EI's frozen constants come from (default: the starts
+    and 256 uniform points, or 256 uniform points). ``random_state``
+    picks the Thompson normals or the chain rows, in the JAX package's
+    order.
+    """
+    if polish_noop_reason(acq, n_samples=n_samples, **kwargs) is not None:
+        return None
+    X0 = np.atleast_2d(np.asarray(X0, dtype=float))
+    rs = _rng(random_state)
+    n_steps, lr = int(n_steps), float(lr)
+    if isinstance(acq, FullGPAcquisition):
+        if X_pool is None:
+            X_pool = np.concatenate([X0, rs.uniform(size=(256, X0.shape[1]))])
+        Xw_pool = gpr._warp_tensor(gpr._tensor(X_pool))
+        seed = int(rs.randint(0, 2**31 - 1))
+        z = None
+        if type(acq) is PVRS:
+            z = gpr._normals(seed, (Xw_pool.shape[0], int(kwargs.get("n_thompson", 10))))
+        xb, vb = _polish_fullgp_vals(
+            gpr._spec, gpr._tensor(gpr._theta), gpr._post, gpr._post_data,
+            gpr._tensor(X0), Xw_pool, gpr._warp_params(), z, gpr.white_index_, n_steps, lr,
+        )
+    else:
+        idx = rs.choice(len(gpr.chain_), replace=False, size=n_samples)
+        if X_pool is None:
+            X_pool = rs.uniform(size=(256, X0.shape[1]))
+        xb, vb = _polish_marginal_vals(
+            gpr._tensor(gpr.chain_[idx]), gpr._data, gpr._tensor(X0), gpr._tensor(X_pool),
+            gpr._spec, gpr.white_index_, len(gpr._y_orig), gpr._n_warp(), acq, kwargs,
+            n_steps, lr, int(n_samples),
+        )
+    return xb.detach().cpu().double().numpy(), vb.cpu().double().numpy()

@@ -64,6 +64,10 @@ def fitted_bayesgpr(
     noise_vector=None,
     warp_alphas=None,
     warp_betas=None,
+    chain_steps=None,
+    n_accepted=0,
+    n_proposals=0,
+    normalize_y=None,
     device=None,
     dtype=torch.float64,
     random_state=None,
@@ -77,13 +81,20 @@ def fitted_bayesgpr(
     per-point noise in normalized units (``gp._noise_vector``). A warped
     model (``warp_inputs=True``) also passes ``warp_alphas``/``warp_betas``
     (``gp.warp_alphas_``/``gp.warp_betas_``); its chain and ensemble
-    carry the 2d warp columns. The consensus posterior and LML are
+    carry the 2d warp columns. ``chain_steps`` (``gp.chain_steps_``),
+    ``n_accepted`` and ``n_proposals`` feed ``mcmc_diagnostics``;
+    ``normalize_y`` (``gp.normalize_y``; ``None`` infers it from a
+    normalization other than 0/1) decides whether a later fit on new
+    data standardizes its targets. The consensus posterior and LML are
     recomputed by the port, on ``device`` (``None``: the CUDA card).
     """
     spec = kernel_spec(kernel)
+    if normalize_y is None:
+        normalize_y = float(y_mean) != 0.0 or float(y_std) != 1.0
     gpr = BayesGPR(
         kernel=spec, alpha=alpha, noise=None, random_state=random_state,
-        warp_inputs=warp_alphas is not None, device=device, dtype=dtype,
+        normalize_y=bool(normalize_y), warp_inputs=warp_alphas is not None,
+        device=device, dtype=dtype,
     )
     gpr._spec = spec
     gpr.y_train_mean_ = float(y_mean)
@@ -95,6 +106,8 @@ def fitted_bayesgpr(
     # copies: arrays read from JAX are read-only, and torch warns on those
     gpr.chain_ = np.array(chain, dtype=float)
     gpr.pos_ = np.array(pos, dtype=float)
+    gpr.chain_steps_ = None if chain_steps is None else np.array(chain_steps, dtype=float)
+    gpr.n_accepted_, gpr.n_proposals_ = int(n_accepted), int(n_proposals)
     gpr.noise_ = None if noise is None else float(noise)
     gpr.create_warpers(warp_alphas, warp_betas)
     gpr.theta = theta  # refreshes the consensus posterior and its LML

@@ -21,15 +21,21 @@ per-walker mode), and the consensus splits the geometric median into
 ``theta``, ``warp_alphas_`` and ``warp_betas_``. ML-II fits theta alone
 at the identity warp, as in the JAX package.
 
-Not ported: row-sharded mode, pathwise draws, Laplace chain init, the
-on-device ML-II, ML-II subsampling, host-callback priors and
-serialization.
+Pathwise draws (:mod:`bask_tpu_torch.models.pathwise`) give
+:meth:`BayesGPR.sample_y_pathwise` and :meth:`BayesGPR.thompson_argmin_pathwise`,
+the batch-ask path over large candidate grids; :meth:`BayesGPR.mcmc_diagnostics`
+reports split R-hat, ESS and autocorrelation times of the kept chain.
+
+Not ported: row-sharded mode, Laplace chain init, the MAP ML-II
+objective, ML-II subsampling, ``optimizer=None``, host-callback priors
+and serialization.
 """
 
 from __future__ import annotations
 
 import math
 import warnings
+from contextlib import contextmanager
 from typing import Optional
 
 import numpy as np
@@ -195,7 +201,9 @@ class BayesGPR:
     ``alpha`` is the jitter on the gram's diagonal (floored at 1e-6 in
     float32); ``noise="gaussian"`` appends a WhiteKernel at fit time;
     ``warp_inputs`` learns a Beta-CDF warp of each input dimension (inputs
-    in [0, 1]). ``fit`` always runs the ML-II warm start. ``moves``
+    in [0, 1]); ``normalize_y`` standardizes the targets by their mean and
+    standard deviation at every new data set. ``fit`` always runs the
+    ML-II warm start. ``moves``
     picks the ensemble moves (default ``"auto"``: demix at W >= 6).
     ``device`` and ``dtype`` place the training data, the chain and the
     posterior; ``device=None`` is the CUDA card. Host-side state
@@ -209,6 +217,7 @@ class BayesGPR:
         alpha: float = 1e-10,
         random_state=None,
         noise: Optional[str] = "gaussian",
+        normalize_y: bool = False,
         warp_inputs: bool = False,
         moves="auto",
         device=None,
@@ -219,6 +228,7 @@ class BayesGPR:
         self._user_kernel = kernel
         self.alpha = alpha
         self.noise = noise
+        self.normalize_y = normalize_y
         self.warp_inputs = warp_inputs
         self.moves = _canonical_moves(moves)
         self.device = torch.device("cuda" if device is None else device)
@@ -246,8 +256,9 @@ class BayesGPR:
         self._y_orig: Optional[np.ndarray] = None
         self._noise_vector: Optional[np.ndarray] = None
         self._priors_cache = None
-        # y is not normalized by default; fitted JAX state may carry a
-        # normalization (convert.fitted_bayesgpr)
+        self._noise_zero = False
+        self.n_accepted_ = 0
+        self.n_proposals_ = 0
         self.y_train_mean_ = 0.0
         self.y_train_std_ = 1.0
 
@@ -313,6 +324,11 @@ class BayesGPR:
     def _set_data(self, X, y, noise_vector):
         self._X_orig = np.array(X, dtype=float, ndmin=2)
         self._y_orig = np.array(y, dtype=float).ravel()
+        if self.normalize_y:
+            self.y_train_mean_ = float(np.mean(self._y_orig))
+            self.y_train_std_ = float(np.std(self._y_orig)) or 1.0
+        else:
+            self.y_train_mean_, self.y_train_std_ = 0.0, 1.0
         if noise_vector is not None:
             noise_vector = np.asarray(noise_vector, dtype=float) / self.y_train_std_**2
         self._noise_vector = noise_vector
@@ -591,7 +607,7 @@ class BayesGPR:
         self.pos_ = final.pos.cpu().numpy()
         _maybe_warn_rhat(self.chain_steps_, warn_rhat)
         w_act = self.chain_steps_.shape[1]
-        if homogeneous_add and getattr(self, "n_proposals_", 0):
+        if homogeneous_add and self.n_proposals_:
             self.n_accepted_ += int(final.accepted)
             self.n_proposals_ += n_steps * w_act
         else:
@@ -655,7 +671,55 @@ class BayesGPR:
             **kwargs,
         )
 
+    def mcmc_diagnostics(self, c: float = 5.0) -> dict:
+        """Convergence diagnostics of the kept chain: per-dimension split
+        R-hat, effective sample size and integrated autocorrelation time
+        (Sokal window constant ``c``), the acceptance rate, and the
+        chain's steps and walkers."""
+        if self.chain_steps_ is None:
+            raise ValueError("No chain available: call fit()/sample() first.")
+        if self.chain_steps_.shape[0] < 4:
+            raise ValueError(
+                "Need at least 4 post-burnin steps for diagnostics "
+                f"(have {self.chain_steps_.shape[0]}); increase "
+                "n_desired_samples or reduce thinning."
+            )
+        from ..utils.diagnostics import (
+            effective_sample_size,
+            integrated_autocorr_time,
+            split_rhat,
+        )
+
+        x = self.chain_steps_
+        return {
+            "rhat": split_rhat(x),
+            "ess": effective_sample_size(x),
+            "autocorr_time": integrated_autocorr_time(x, c=c),
+            "acceptance": self.n_accepted_ / self.n_proposals_ if self.n_proposals_ else None,
+            "n_steps": int(x.shape[0]),
+            "n_walkers": int(x.shape[1]),
+        }
+
     # -- prediction --------------------------------------------------------
+
+    @contextmanager
+    def noise_set_to_zero(self):
+        """Context manager: predictions exclude the Gaussian noise term
+        (the factorized posterior is left as it is)."""
+        prev = self._noise_zero
+        self._noise_zero = True
+        try:
+            yield self
+        finally:
+            self._noise_zero = prev
+
+    def _theta_diag(self):
+        """Consensus theta of the prior-variance diagonal: noise-free
+        inside :meth:`noise_set_to_zero`."""
+        theta = self._tensor(self._theta)
+        if self._noise_zero:
+            return gpc.noise_free_theta(self._spec, theta, self.white_index_)
+        return theta
 
     def _check_fitted(self):
         if self._post is None:
@@ -670,7 +734,7 @@ class BayesGPR:
         if self.warp_inputs:
             validate_zeroone(X)
         out = gpc.predict(
-            self._spec, self._tensor(self._theta), self._post, self._post_data,
+            self._spec, self._theta_diag(), self._post, self._post_data,
             self._warp_tensor(self._tensor(X)), return_std=return_std,
             return_cov=return_cov,
         )
@@ -724,6 +788,88 @@ class BayesGPR:
         z = self._normals(seed, (n_samples, Xq.shape[-2], 1))
         draws = gpc.sample_y(self._spec, td, post, data, Xq, z, invs=invs)
         return draws[..., 0].T.cpu().numpy()
+
+    def _fused_spec(self):
+        from ..ops.gram import match_fusable
+
+        spec = match_fusable(self._spec)
+        if spec is None:
+            raise NotImplementedError(
+                "Pathwise sampling requires a Constant*(Matern|RBF)[+White] "
+                "kernel; use sample_y instead."
+            )
+        return spec
+
+    def _pathwise_randoms(self, spec, seed, n_features, n_samples, batch=()):
+        from .pathwise import draw_pathwise_randoms
+
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        n_pad, d = self._data.X.shape
+        return draw_pathwise_randoms(
+            gen, spec.nu, n_features, d, n_pad, n_samples, batch=batch,
+            dtype=self.dtype, device=self.device,
+        )
+
+    @torch.no_grad()
+    def sample_y_pathwise(self, X, n_samples: int = 1, random_state=0, n_features: int = 1024):
+        """Consensus-GP draws (n_points, n_samples) by pathwise sampling:
+        linear in the number of points, so tens of thousands are fine.
+        Needs a ``Constant * (Matern|RBF) [+ White]`` kernel."""
+        from .pathwise import pathwise_samples
+
+        spec = self._fused_spec()
+        seed = self._seed(random_state)
+        Xq = self._warp_tensor(self._tensor(np.atleast_2d(X)))
+        rand = self._pathwise_randoms(spec, seed, n_features, n_samples)
+        out = pathwise_samples(
+            spec, self._tensor(self._theta), self._post_data, self._post.L, Xq, rand
+        )
+        return out.cpu().double().numpy() * self.y_train_std_ + self.y_train_mean_
+
+    @torch.no_grad()
+    def thompson_argmin_pathwise(
+        self, X, n_samples: int = 1, top_k: int = 8, random_state=0,
+        n_features: int = 1024, sample_mean: bool = True,
+    ):
+        """Per-draw top-k minimizer indices (n_samples, top_k), computed
+        on the device: only the index table reaches the host.
+
+        ``sample_mean=True`` draws from the consensus GP (one set of
+        features for all draws); ``sample_mean=False`` gives each draw a
+        chain row (rows picked by a NumPy RandomState of the seed, as in
+        the JAX package) and its own features
+        (:func:`~bask_tpu_torch.models.pathwise.pathwise_topk_hyper`).
+        The randoms come from a torch generator seeded with the seed."""
+        from .pathwise import pathwise_topk, pathwise_topk_hyper
+
+        spec = self._fused_spec()
+        seed = self._seed(random_state)
+        Xq = self._tensor(np.atleast_2d(X))
+        if sample_mean:
+            rand = self._pathwise_randoms(spec, seed, n_features, n_samples)
+            idx = pathwise_topk(
+                spec, self._tensor(self._theta), self._post_data, self._post.L,
+                self._warp_tensor(Xq), rand, top_k,
+            )
+            return idx.cpu().numpy()
+        rs = np.random.RandomState(seed)
+        rows = self._tensor(self.chain_[rs.choice(len(self.chain_), n_samples, replace=True)])
+        rand = self._pathwise_randoms(spec, seed, n_features, 1, batch=(n_samples,))
+        idx = pathwise_topk_hyper(
+            spec, rows, self._data, Xq, rand, self._n_warp(), top_k,
+            n_real=len(self._y_orig),
+        )
+        return idx.cpu().numpy()
+
+    def log_marginal_likelihood(self, theta=None):
+        """The consensus LML, or the LML at ``theta`` on the posterior's
+        (warped) data."""
+        if theta is None:
+            return self.log_marginal_likelihood_value_
+        data = self._post_data if self._post_data is not None else self._data
+        with torch.no_grad():
+            return float(gpc.log_marginal_likelihood(self._spec, self._tensor(theta), data))
 
     # -- public warper API (reference bask/bayesgpr.py:249-316) ------------
 

@@ -160,6 +160,8 @@ def predict(
     query gram (``noise_free_theta`` for epistemic uncertainty only);
     ``post`` keeps the noisy factorization. ``invs`` routes the
     cross-gram solve through the cached block inverses (matmuls).
+    Differentiable in ``Xq``: the expected-minimum search descends the
+    mean by autograd (JAX's ``predict_mean`` is this call's mean).
     """
     from ..ops.fast_cholesky import block_solve_lower_mat
 

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..ops import kernels as bk
+from .stats import halfnorm_logpdf
 
 __all__ = [
     "make_roundflat",
@@ -23,16 +24,6 @@ __all__ = [
     "signal_variance_prior",
     "lengthscale_prior",
 ]
-
-
-def _halfnorm_logpdf(x, scale):
-    z = x / scale
-    return (
-        0.5 * math.log(2.0 / math.pi)
-        - math.log(scale)
-        - 0.5 * z * z
-        + torch.where(x >= 0, 0.0, -math.inf)
-    )
 
 
 def make_roundflat(
@@ -76,7 +67,7 @@ def signal_variance_prior(x):
     """Half-normal(scale=2) prior on the amplitude sqrt(exp(x)), with the
     log-space change of variables."""
     return (
-        _halfnorm_logpdf(torch.sqrt(torch.exp(x)), 2.0)
+        halfnorm_logpdf(torch.sqrt(torch.exp(x)), 2.0)
         + x / 2.0
         - math.log(2.0)
     )

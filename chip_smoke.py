@@ -35,7 +35,23 @@ Phases, each printing one result line:
    chain's grams come from K2 on per-walker warped X; a cold tell, three
    warm PVRS tells, then one pass of each of the eight acquisitions over
    a 500-point grid; the launch counts of K1, K2 and K3 over this phase,
-   which are the ``launches`` of the kernel table.
+   which are the ``launches`` of the kernel table;
+8. the batch ask at the shape of ``benchmarks/bench_batch_ask.py``
+   (n = 1,000 in 15-D padded to 1,024, 256 walkers, normalized y): a cold
+   tell with an EI pass over 65,536 candidates, then ``ask(n_points=256)``
+   twice (pathwise Thompson top-k, K1 at (256, 1024, 1024) and its
+   blocked factorization with K3 bases); K1 alone at (256, 1024, 1024)
+   and (128, 1024, 1024) against its float64 plain version on a few rows,
+   the (256, 1024, 1024) factorization A/B against ``cholesky_ex``, and
+   4 of 256 pathwise draws held to a float64 recomputation;
+9. on phase 6's fitted Optimizer (n = 500, d = 15): a warm tell with the
+   PVRS polish and one with the EI polish (each polished value no lower
+   than its start under the same draws), the chain's diagnostics, the
+   three stopping diagnostics, and the legacy dispatcher bit-equal to
+   the fused pass.
+
+The ``launches`` of the kernel table sum phases 7-9, each counted from 0
+just before the phase drives the Optimizer and read just after it.
 
 No failure is caught: a phase that fails ends the run with a non-zero
 exit. Without a CUDA card it exits non-zero at once. The last three
@@ -57,6 +73,14 @@ import numpy as np
 N_OBS, N_DIM, N_PAD, N_WALKERS, N_CAND = 500, 15, 512, 100, 500
 # R-hat legs of 300 steps for each cold tell (the Optimizer's default is 12)
 COLD_LEGS = 2
+# the batch ask of BASELINE.json configs[4] (benchmarks/bench_batch_ask.py)
+BATCH_OBS, BATCH_PAD, BATCH_WALKERS, BATCH_CAND, BATCH_K = 1000, 1024, 256, 65536, 256
+# the draws of phase 8 recomputed in float64, and the limit of a draw's
+# float32 error over its max |value|: ~3.3x the largest read on an H100
+# (~9e-5, draw 0 at cond K 1.14e5; the same on every run) and ~46x
+# below the worst-case eps32 (3n + cond K)
+CHECK_DRAWS = (0, 85, 170, 255)
+DRAW_REL_TOL = 3e-4
 # published peaks of one H100 SXM (NVIDIA's datasheet): HBM bytes/s
 # and float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -135,19 +159,25 @@ def variant_kernel(bk, variant, nu=2.5):
     }[variant]
 
 
-def profiled(fn, reps=1):
+def profiled(fn, reps=1, wall=False):
     """(device operations per ``fn()``, the device events) over ``reps``
-    calls after one warm-up call, by torch.profiler."""
+    calls after one warm-up call, by torch.profiler; with ``wall``, also
+    the host seconds of the ``reps`` calls alone (to the synchronize after
+    them; the profiler's start and stop are outside)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
     ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if wall:
+        return len(ops) / reps, ops, seconds
     return len(ops) / reps, ops
 
 
@@ -666,6 +696,7 @@ def phase_optimizer(dev):
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"optimizer phase failed: {failed}")
+    return opt
 
 
 def phase_warped_optimizer(dev):
@@ -727,6 +758,403 @@ def phase_warped_optimizer(dev):
     return launches
 
 
+def _counts():
+    return {k: fn.launches for k, fn in _kernel_counters().items()}
+
+
+def _since(before):
+    now = _counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def _uncounted(fn):
+    """``fn()`` with the launch counts put back as they were after it: a
+    launch made to check a result is not one of the path's."""
+    saved = _counts()
+    try:
+        return fn()
+    finally:
+        for k, f in _kernel_counters().items():
+            f.launches = saved[k]
+
+
+def batch_dataset():
+    """bench_batch_ask.py's data (seed 0): X uniform in [0, 1]^15, a noisy
+    bowl (raw; the GP normalizes y)."""
+    rng = np.random.RandomState(0)
+    X = rng.uniform(size=(BATCH_OBS, N_DIM))
+    y = np.sum((X - 0.5) ** 2, axis=1) + 0.05 * rng.randn(BATCH_OBS)
+    return X, y
+
+
+def _gram_at(dev, kernel, B, thetas_of, X):
+    """K1 at (B, BATCH_PAD, BATCH_PAD) on the batch data for ``B`` chain
+    rows, held to its float64 plain version on 4 rows (4e-6 max|K|, the
+    bound of phase 2); the wrapper's and the kernel's time."""
+    import torch
+
+    from bask_tpu_torch.ops import gram
+
+    spec = gram.match_fusable(kernel)
+    th = thetas_of(B)
+    Xd = torch.tensor(X, dtype=torch.float32, device=dev)
+    alpha = torch.full((BATCH_PAD,), 1e-6, dtype=torch.float32, device=dev)
+    args = (spec, th, Xd, alpha, BATCH_OBS)
+    K = gram.fused_masked_gram_batch(*args)
+    rows = [0, B // 3, 2 * B // 3, B - 1]
+    ref = gram.fused_masked_gram_plain(
+        spec, th[rows].double(), Xd.double(), alpha.double(), BATCH_OBS
+    )
+    err = float((K[rows].double() - ref).abs().max())
+    bound_err = 4e-6 * float(ref.abs().max())
+    del K, ref
+    ms = cuda_ms(lambda: gram.fused_masked_gram_batch(*args), reps=10)
+    plain_ms = cuda_ms(lambda: gram.fused_masked_gram_plain(*args), reps=3)
+    _, ops = profiled(lambda: gram.fused_masked_gram_batch(*args), reps=5)
+    bound, by = gram_bound(B, BATCH_PAD, N_DIM)
+    out = {"shape": [B, BATCH_PAD, BATCH_PAD], "max_abs_err": err, "err_bound": bound_err,
+           "ms": ms, "kernel_alone_us": kernel_us(ops, "gram_kernel"), "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": by, "library_ms": None}
+    if not err <= bound_err:
+        raise AssertionError(f"K1 disagrees with its plain version: {out}")
+    return out
+
+
+def _factor_ab(dev, Kp, yb):
+    """The (B, 1024, 1024) factorization + forward solve + LML terms:
+    blocked with K3 bases against cholesky_ex + solve_triangular, in turns
+    (blocked, library, library, blocked)."""
+    import torch
+
+    from bask_tpu_torch.ops import chol_base
+    from bask_tpu_torch.ops import fast_cholesky as fc
+
+    def blocked():
+        return fc.fast_lml_terms(Kp, yb)[1:]
+
+    def library():
+        L, _ = torch.linalg.cholesky_ex(Kp)
+        w = torch.linalg.solve_triangular(L, yb[..., None], upper=False)[..., 0]
+        return torch.log(L.diagonal(dim1=-2, dim2=-1)).sum(-1), (w * w).sum(-1)
+
+    before = chol_base.chol_inv_base.launches
+    terms = [t.double() for t in blocked()]
+    k3 = chol_base.chol_inv_base.launches - before
+    ref = [t.double() for t in library()]
+    agree = max(float(((a - b) / b.abs().clamp(min=1.0)).abs().max()) for a, b in zip(terms, ref))
+    turns = {"blocked": [], "cholesky_ex": []}
+    for name in ("blocked", "cholesky_ex", "cholesky_ex", "blocked"):
+        turns[name].append(cuda_ms(blocked if name == "blocked" else library, reps=5))
+    out = {"shape": list(Kp.shape), "ms_turns": turns, "k3_launches": k3,
+           "device_ops": {"blocked": profiled(blocked)[0], "cholesky_ex": profiled(library)[0]},
+           "rel_diff_vs_cholesky_ex": agree}
+    if not agree <= 1e-4:
+        raise AssertionError(f"the (·, 1024, 1024) factorizations disagree: {out}")
+    return out
+
+
+def _draws_f64(gp, spec, rows, rand, Xq):
+    """The pathwise draws of ``rows`` (one each) recomputed in float64:
+    the plain gram and cholesky_ex, the same randoms, one draw at a time."""
+    import torch
+
+    from bask_tpu_torch.models import pathwise
+    from bask_tpu_torch.ops import gram
+
+    d = gp._data
+    data = d._replace(X=d.X.double(), y=d.y.double(), alpha_diag=d.alpha_diag.double())
+    out, conds = [], []
+    for i in range(rows.shape[0]):
+        theta = rows[i : i + 1].double()
+        K = gram.fused_masked_gram_plain(spec, theta, data.X, data.alpha_diag, BATCH_OBS)
+        L, _ = torch.linalg.cholesky_ex(K)
+        ev = torch.linalg.eigvalsh(K[0, :BATCH_OBS, :BATCH_OBS])
+        conds.append(float(ev[-1] / ev[0]))
+
+        def solve(R, L=L):
+            return torch.cholesky_solve(R, L)
+
+        part = pathwise.PathwiseRandoms(*(None if r is None else r[i : i + 1].double() for r in rand))
+        out.append(pathwise._draw_values(spec, theta, data.X, data, solve, Xq.double(), part)[0, :, 0])
+    return torch.stack(out), conds
+
+
+def _draws_tf32(gp, spec, rows, rand, Xq):
+    """The control the draws' limit must reject: the draws of ``rows``
+    (one each) with the gram and the factor in float32 as the path makes
+    them, then the features, the blocked solves and k(x, X) v as TF32
+    matmuls (10-bit mantissas). With the factorization in TF32 as well,
+    the factor of these grams (cond K ~1e5) is NaN."""
+    import torch
+
+    from bask_tpu_torch.models import pathwise
+    from bask_tpu_torch.ops import fast_cholesky as fc
+    from bask_tpu_torch.ops import gram
+
+    d = gp._data
+    L, invs = fc.block_cholesky(
+        gram.fused_masked_gram_batch(spec, rows, d.X, d.alpha_diag, BATCH_OBS)
+    )
+
+    def solve(R):
+        return fc.block_solve_upper_mat(L, invs, fc.block_solve_lower_mat(L, invs, R))
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        return pathwise._draw_values(spec, rows, d.X, d, solve, Xq, rand)[..., 0].double()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+
+
+def phase_batch_ask(dev):
+    """BASELINE configs[4] through the Optimizer: a cold batch tell of
+    1,000 points (256 walkers, EI over 65,536 candidates), then two
+    256-point batch asks; K1 at the path's shapes, the factorization A/B
+    and 4 draws against float64. Returns (launches, K1 and K3 extras)."""
+    import torch
+
+    from bask_tpu_torch import Optimizer
+    from bask_tpu_torch.models import pathwise
+    from bask_tpu_torch.ops import gram
+    from bask_tpu_torch.ops import kernels as bk
+
+    X, y = batch_dataset()
+    kernel = bk.ConstantKernel(1.0, (0.1, 2.0)) * bk.Matern((0.3,) * N_DIM, (0.05, 2.0), nu=2.5)
+    opt = Optimizer(
+        dimensions=[(0.0, 1.0)] * N_DIM, n_points=BATCH_CAND, n_initial_points=BATCH_OBS,
+        gp_kernel=kernel, gp_kwargs={"normalize_y": True}, acq_func="ei",
+        gp_sample_kwargs={"until_rhat": None, "n_walkers_per_thread": BATCH_WALKERS},
+        random_state=0, device=dev,
+    )
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in _kernel_counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    opt.tell(X.tolist(), y.tolist(), n_samples=5, gp_samples=BATCH_WALKERS, gp_burnin=10)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    per_step = {"tell": _counts()}
+    ask_s, points = [], []
+    for i in range(2):
+        before = _counts()
+        t0 = time.perf_counter()
+        points.append(np.asarray(opt.ask(n_points=BATCH_K)))
+        torch.cuda.synchronize()
+        ask_s.append(time.perf_counter() - t0)
+        per_step[f"ask {i + 1}"] = _since(before)
+    launches = _counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    # where an ask's time goes: a fourth ask under the profiler, after a
+    # third as its warm-up (neither in the counts or the timings above):
+    # busy share = the ask's summed kernel time over the host wall time of
+    # that ask alone, top kernels
+    _, ops, wall_s = profiled(lambda: opt.ask(n_points=BATCH_K), reps=1, wall=True)
+    by_name = {}
+    for e in ops:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    ask_profile = {"device_ops": len(ops), "device_us": sum(by_name.values()),
+                   "wall_us": 1e6 * wall_s, "busy_share": sum(by_name.values()) / (1e6 * wall_s),
+                   "top_kernels_us": [[k[:60], v] for k, v in top]}
+    distinct = [len({tuple(p) for p in pts}) for pts in points]
+    inside = all(bool(((pts >= 0.0) & (pts <= 1.0)).all()) for pts in points)
+
+    # 4 of 256 draws against float64, on the grid and rows an ask uses
+    gp = opt.gp
+    spec = gram.match_fusable(gp._spec)
+    grid = gp._tensor(np.random.RandomState(8).uniform(size=(BATCH_CAND, N_DIM)))
+    rows = gp._tensor(gp.chain_[np.random.RandomState(9).choice(len(gp.chain_), BATCH_K)])
+    rand = gp._pathwise_randoms(spec, 9, 1024, 1, batch=(BATCH_K,))
+    idx, draws32 = pathwise.pathwise_topk_hyper(
+        spec, rows, gp._data, grid, rand, 0, 8, n_real=BATCH_OBS, keep=CHECK_DRAWS
+    )
+    keep = list(CHECK_DRAWS)
+    sub = pathwise.PathwiseRandoms(*(None if r is None else r[keep] for r in rand))
+    draws64, conds = _draws_f64(gp, spec, rows[keep], sub, grid)
+    err = (draws32.double() - draws64).abs().max(dim=1).values
+    scale = draws64.abs().max(dim=1).values
+    # the limit, from readings: DRAW_REL_TOL x the draw's scale. The
+    # worst-case first-order bound, eps32 (3n + cond K) x scale (3n eps32
+    # from the factorization's and the n-term sums' rounding, eps32 cond K
+    # from the solve amplifying K's rounding), is reported beside it only
+    eps32 = float(np.finfo(np.float32).eps)
+    tol = DRAW_REL_TOL * scale
+    upper = torch.tensor([eps32 * (3 * BATCH_OBS + c) for c in conds], dtype=torch.float64,
+                         device=dev) * scale
+    top1 = idx[keep, 0]
+    gap = draws64.gather(1, top1[:, None])[:, 0] - draws64.min(dim=1).values
+    draws_ok = bool((err <= tol).all() and (gap <= tol).all())
+    err_tf32 = (_draws_tf32(gp, spec, rows[keep], sub, grid) - draws64).abs().max(dim=1).values
+    control_fails = bool((~(err_tf32 <= tol)).all())  # NaN misses too
+
+    # K1 alone at the path's shapes and the factorization A/B at 256
+    theta_rows = gp.chain_[np.random.RandomState(10).choice(len(gp.chain_), BATCH_WALKERS)]
+    Xp = np.full((BATCH_PAD, N_DIM), 0.5)
+    Xp[:BATCH_OBS] = X
+
+    def thetas_of(B):
+        return torch.tensor(theta_rows[:B], dtype=torch.float32, device=dev)
+
+    k1 = [_gram_at(dev, gp._spec, B, thetas_of, Xp) for B in (BATCH_WALKERS, BATCH_WALKERS // 2)]
+    Kp = gram.fused_masked_gram_batch(
+        spec, thetas_of(BATCH_WALKERS), gp._data.X, gp._data.alpha_diag, BATCH_OBS
+    )
+    factor = _factor_ab(dev, Kp, gp._data.y.expand(Kp.shape[:-1]))
+    del Kp
+    report(
+        "phase 8 batch ask", n=BATCH_OBS, n_pad=BATCH_PAD, walkers=BATCH_WALKERS,
+        candidates=BATCH_CAND, batch=BATCH_K, cold_tell_s=cold_s, ask_s=ask_s,
+        candidates_x_draws_per_s=[BATCH_CAND * BATCH_K / t for t in ask_s],
+        last_timings=opt.last_timings_, distinct_points=distinct, inside_bounds=inside,
+        launches=per_step, peak_mem_gb=peak_gb, chunk_bytes=pathwise.CHUNK_BYTES,
+        ask_profile=ask_profile,
+        k1=k1, factorization_ab=factor,
+        draws_f64={"draws": keep, "max_abs_err": err.tolist(), "scale": scale.tolist(),
+                   "rel_err": (err / scale).tolist(), "tol": tol.tolist(),
+                   "upper_bound_cond_K": upper.tolist(), "cond_K": conds,
+                   "top1_gap_to_f64_min": gap.tolist(), "ok": draws_ok,
+                   "tf32_control_max_abs_err": err_tf32.tolist(),
+                   "tf32_control_fails": control_fails},
+    )
+    checks = {
+        "256 distinct points per ask": distinct == [BATCH_K, BATCH_K],
+        "points inside bounds": inside,
+        "K1 ran in each ask": all(per_step[f"ask {i}"]["K1"] >= 1 for i in (1, 2)),
+        "K3 8 per factorization in each ask": all(
+            per_step[f"ask {i}"]["K3"] == 8 * per_step[f"ask {i}"]["K1"] for i in (1, 2)),
+        "factorization: 8 K3 launches": factor["k3_launches"] == 8,
+        "4 draws agree with float64": draws_ok,
+        "the TF32 control misses the draws' limit": control_fails,
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"batch-ask phase failed: {failed}")
+    k3_ab = {"shape": factor["shape"], "blocked_ms": float(np.median(factor["ms_turns"]["blocked"])),
+             "library_ms": float(np.median(factor["ms_turns"]["cholesky_ex"])),
+             "launches_per_factorization": factor["k3_launches"]}
+    return launches, k1, k3_ab
+
+
+def phase_stopping_polish(opt, dev):
+    """Phase 6's fitted Optimizer: a warm tell with the PVRS polish (800
+    kept samples, so the chain has the 8 kept steps the diagnostics
+    need), the diagnostics, the stopping rules, a warm tell with the EI
+    polish, and the legacy dispatcher against the fused pass. Returns the
+    launch counts of the two polished tells."""
+    import torch
+
+    from bask_tpu_torch import acquisition as acq_mod
+    from bask_tpu_torch.acquisition import evaluate_acquisitions, evaluate_acquisitions_fused
+    from bask_tpu_torch.optimizer import ACQUISITION_FUNC
+
+    calls = []
+    polish = acq_mod.polish_acquisition
+
+    def recorded(X0, **kw):
+        k1 = _counts()["K1"]
+        out = polish(X0, **kw)
+        calls.append({"X0": X0, "kw": kw, "out": out, "k1": _counts()["K1"] - k1})
+        return out
+
+    def objective(x, rng=np.random.RandomState(11)):
+        return float(np.sum((np.asarray(x) - 0.5) ** 2) + 0.05 * rng.randn())
+
+    def polished_tell(acq, **tell_kw):
+        opt.acq_func = ACQUISITION_FUNC[acq]
+        x = opt.ask()
+        t0 = time.perf_counter()
+        opt.tell(x, objective(x), **tell_kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        call = calls[-1]
+        # the starts' own values under the same draws (the same seed, 0
+        # steps); a separate call, so allow its last bits to differ, and a
+        # check, so its launches are not counted
+        _, v0 = _uncounted(lambda: polish(call["X0"], **{**call["kw"], "n_steps": 0}))
+        xb, vb = call["out"]
+        nxt = np.asarray(opt.ask())
+        return {"tell_s": seconds, "start_values": v0.tolist(), "polished_values": vb.tolist(),
+                "no_lower": bool((vb >= v0 - 1e-6 * np.abs(v0)).all()),
+                # the best value is kept from t = 0, so "no lower" holds for
+                # any gradient; a climb shows the gradient leads uphill
+                "climbs": bool((vb > v0 + 1e-3 * np.abs(v0)).any()),
+                "next_inside_bounds": bool(((nxt >= 0.0) & (nxt <= 1.0)).all()),
+                "k1_in_polish": call["k1"]}
+
+    opt.acq_polish = 20
+    acq_mod.polish_acquisition = recorded
+    try:
+        for fn in _kernel_counters().values():
+            fn.launches = 0
+        pvrs = polished_tell("pvrs", gp_samples=800)
+        t0 = time.perf_counter()
+        diag = opt.gp.mcmc_diagnostics()  # the 8 kept steps of this tell
+        t_diag = time.perf_counter() - t0
+        ei = polished_tell("ei", n_samples=10)
+        launches = _counts()
+    finally:
+        acq_mod.polish_acquisition = polish
+        opt.acq_polish = 0
+    width = opt.gp.chain_.shape[1]
+    diag_ok = all(
+        v.shape == (width,) and bool(np.isfinite(v).all())
+        for v in (diag["rhat"], diag["ess"], diag["autocorr_time"])
+    )
+    t0 = time.perf_counter()
+    probs = opt.probability_of_optimality([0.1, 1.0], random_state=12)
+    t_prob = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    intervals = opt.optimum_intervals(random_state=13)
+    t_int = time.perf_counter() - t0
+    gap_kw = dict(n_probabilities=20, n_space_samples=200, n_gp_samples=100, n_random_starts=20)
+    t0 = time.perf_counter()
+    gap = opt.expected_optimality_gap(random_state=14, **gap_kw)
+    t_gap = time.perf_counter() - t0
+    grid = np.random.RandomState(15).uniform(size=(N_CAND, N_DIM))
+    equal = {}
+    for name in ("ei", "lcb", "ts"):
+        acq = ACQUISITION_FUNC[name]
+        legacy = evaluate_acquisitions(grid, opt.gp, (acq,), n_samples=10, random_state=16)
+        fused = evaluate_acquisitions_fused(grid, opt.gp, acq, n_samples=10, random_state=16)
+        equal[name] = bool(np.array_equal(legacy, fused))
+    intervals_ok = len(intervals) == N_DIM and all(
+        iv.ndim == 2 and iv.shape[1] == 2 and bool(np.isfinite(iv).all()) for iv in intervals
+    )
+    report(
+        "phase 9 stopping, diagnostics, polish, legacy dispatch",
+        pvrs_polish=pvrs, ei_polish=ei, launches=launches,
+        diagnostics={"rhat_max": float(np.max(diag["rhat"])), "ess_min": float(np.min(diag["ess"])),
+                     "autocorr_time_max": float(np.max(diag["autocorr_time"])),
+                     "acceptance": diag["acceptance"], "n_steps": diag["n_steps"],
+                     "n_walkers": diag["n_walkers"], "width": width, "finite": diag_ok},
+        probability_of_optimality={"thresholds": [0.1, 1.0], "p": probs},
+        optimum_intervals_modes=[len(iv) for iv in intervals],
+        expected_optimality_gap=gap, gap_reduced_to=gap_kw,
+        seconds={"diagnostics": t_diag, "probability_of_optimality": t_prob,
+                 "optimum_intervals": t_int, "expected_optimality_gap": t_gap},
+        legacy_equals_fused=equal,
+    )
+    checks = {
+        "diagnostics finite, chain width": diag_ok,
+        "probabilities monotone": probs[0] <= probs[1],
+        "optimum intervals finite": intervals_ok,
+        "gap finite": math.isfinite(gap),
+        "PVRS polish no lower than its start": pvrs["no_lower"],
+        "EI polish no lower than its start": ei["no_lower"],
+        "PVRS polish climbs from one start at least": pvrs["climbs"],
+        "EI polish climbs from one start at least": ei["climbs"],
+        "polished points inside bounds": pvrs["next_inside_bounds"] and ei["next_inside_bounds"],
+        "K1 ran in the EI polish": ei["k1_in_polish"] > 0,
+        "legacy == fused": all(equal.values()),
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 9 failed: {failed}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -737,27 +1165,43 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda", 0)
-    smi = phase_device()
-    k1 = phase_gram(dev)
-    k2 = phase_lower_gram(dev)
-    k3 = phase_chol(dev)
-    phase_factor_ab(dev)
-    phase_lml(dev)
-    phase_optimizer(dev)
-    launches = phase_warped_optimizer(dev)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    smi = timed("1", phase_device)
+    k1 = timed("2", phase_gram, dev)
+    k2 = timed("3", phase_lower_gram, dev)
+    k3 = timed("4", phase_chol, dev)
+    timed("4b", phase_factor_ab, dev)
+    timed("5", phase_lml, dev)
+    opt = timed("6", phase_optimizer, dev)
+    by_path = {"phase 7 warped tell": timed("7", phase_warped_optimizer, dev)}
+    by_path["phase 8 batch ask"], k1_batch, k3_batch = timed("8", phase_batch_ask, dev)
+    by_path["phase 9 polish"] = timed("9", phase_stopping_polish, opt, dev)
+    report("phase seconds", **seconds, total=sum(seconds.values()))
+
+    def launches(key):
+        return {"launches": sum(c[key] for c in by_path.values()),
+                "launches_by_path": {p: c[key] for p, c in by_path.items()}}
+
     table = [
         {"name": "K1 fused masked gram", "route": "cuda",
          "source": "bask_tpu_torch/csrc/gram.cu",
          "replaces": "bask_tpu/ops/pallas_gram.py:193",
-         "launches": launches["K1"], **k1},
+         **launches("K1"), **k1, "at_batch_ask_shapes": k1_batch},
         {"name": "K2 fused masked gram, lower 128-tiles", "route": "cuda",
          "source": "bask_tpu_torch/csrc/gram.cu",
          "replaces": "bask_tpu/ops/pallas_gram.py:264",
-         "launches": launches["K2"], **k2},
+         **launches("K2"), **k2},
         {"name": "K3 base Cholesky + inverse", "route": "cuda",
          "source": "bask_tpu_torch/csrc/chol_base.cu",
          "replaces": "bask_tpu/ops/pallas_chol_base.py:105",
-         "launches": launches["K3"], **k3},
+         **launches("K3"), **k3, "in_batch_ask_factorization": k3_batch},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

@@ -3,7 +3,10 @@
 (Cholesky + inverse of blocks up to 128 wide, also read in place)
 against their plain versions, their launch counters, K1's one device
 operation per call, the wrappers' refusals, and the batched LML through
-the kernels (with K2, bit-equal to the K1 run).
+the kernels (with K2, bit-equal to the K1 run), and the batch-ask shapes:
+K1 at (256, 1024, 1024), the blocked factorization of that size (8 K3
+launches) against ``cholesky_ex`` in float64, and one pathwise top-k
+against its float64 recomputation.
 
 Every test here needs a CUDA card and skips without one. The file
 imports no JAX, so it also runs where only the port is installed:
@@ -262,3 +265,107 @@ def test_batched_lml_lower_gram_is_bit_identical(dev, monkeypatch, per_walker):
     on = linalg.batched_lml(KERNEL, *t, mask, n_real=n)
     assert gram.fused_masked_gram_lower_batch.launches == k2 + 1
     assert torch.isfinite(off).all() and torch.equal(on, off)
+
+
+def _batch_ask_grams(dev, B):
+    """K1 grams of 1,000 uniform 15-D points padded to 1,024 for ``B``
+    thetas near the kernel's start, with a 1e-2 noise floor."""
+    rng = np.random.RandomState(7)
+    X = np.full((1024, 15), 0.5)
+    X[:1000] = rng.uniform(size=(1000, 15))
+    thetas = KERNEL.theta0[None] + 0.1 * rng.randn(B, KERNEL.n_theta)
+    thetas[:, -1] = np.log(1e-2)
+    t = [torch.tensor(a, dtype=torch.float32, device=dev) for a in (thetas, X, np.full(1024, 1e-6))]
+    return gram.match_fusable(KERNEL), t
+
+
+def test_gram_kernel_at_the_batch_ask_shape(dev):
+    """K1 at (256, 1024, 1024): 1.07 GB written by one launch, within
+    4e-6 max|K| of the float64 plain version on four rows."""
+    spec, (thetas, X, alpha) = _batch_ask_grams(dev, 256)
+    before = gram.fused_masked_gram_batch.launches
+    K = gram.fused_masked_gram_batch(spec, thetas, X, alpha, 1000)
+    assert gram.fused_masked_gram_batch.launches == before + 1
+    rows = [0, 85, 170, 255]
+    ref = gram.fused_masked_gram_plain(spec, thetas[rows].double(), X.double(), alpha.double(), 1000)
+    assert torch.isfinite(K).all()
+    assert float((K[rows].double() - ref).abs().max()) <= 4e-6 * float(ref.abs().max())
+
+
+def test_blocked_factorization_at_the_batch_ask_shape(dev):
+    """The (256, 1024, 1024) blocked factorization (4 panels of 256, two
+    128-wide K3 bases each) against cholesky_ex in float64: the LML
+    terms of each gram within eps32 (3n + cond(K)) relative, to first
+    order the factorization's and the sums' rounding (the gamma_3n of a
+    Cholesky backward error) plus the solve's amplification of rounding
+    K to float32 (phase 8 of chip_smoke.py holds its draws to the
+    same)."""
+    from bask_tpu_torch.ops import fast_cholesky as fc
+
+    spec, (thetas, X, alpha) = _batch_ask_grams(dev, 256)
+    K = gram.fused_masked_gram_batch(spec, thetas, X, alpha, 1000)
+    y = torch.randn(1024, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    y[1000:] = 0.0
+    yb = y.expand(K.shape[:-1])
+    before = chol_base.chol_inv_base.launches
+    _, logdiag, quad = fc.fast_lml_terms(K, yb)
+    assert chol_base.chol_inv_base.launches == before + 8
+    L64, info = torch.linalg.cholesky_ex(K.double())
+    assert int(info.max()) == 0
+    w = torch.linalg.solve_triangular(L64, yb.double()[..., None], upper=False)[..., 0]
+    ref = (torch.log(L64.diagonal(dim1=-2, dim2=-1)).sum(-1), (w * w).sum(-1))
+    ev = torch.linalg.eigvalsh(K.double()[:, :1000, :1000])
+    tol = float(np.finfo(np.float32).eps) * (3 * 1000 + ev[:, -1] / ev[:, 0])
+    for got, want in zip((logdiag, quad), ref):
+        assert bool((((got.double() - want) / want.abs().clamp(min=1.0)).abs() <= tol).all())
+
+
+def test_pathwise_topk_against_float64(dev):
+    """One pathwise top-k on the card (K1 gram, K3 bases, chunks of
+    draws) against the same draws recomputed in float64 with the plain
+    gram and cholesky_ex: within eps32 (3n + cond(K)) of each draw's
+    scale (as above), and each top-1 index within that of the float64
+    minimum."""
+    from bask_tpu_torch.models import gp as gpc
+    from bask_tpu_torch.models import pathwise
+
+    rng = np.random.RandomState(8)
+    n, n_pad, d, S, m = 400, 448, 15, 16, 8192
+    X = np.full((n_pad, d), 0.5)
+    X[:n] = rng.uniform(size=(n, d))
+    y = np.zeros(n_pad)
+    y[:n] = rng.randn(n)
+    rows = KERNEL.theta0[None] + 0.1 * rng.randn(S, KERNEL.n_theta)
+    rows[:, -1] = np.log(1e-2)
+
+    def data(dtype):
+        t = [torch.tensor(a, dtype=dtype, device=dev) for a in (X, y, np.full(n_pad, 1e-6))]
+        return gpc.make_data(*t, np.arange(n_pad) < n)
+
+    spec = gram.match_fusable(KERNEL)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rand = pathwise.draw_pathwise_randoms(gen, spec.nu, 1024, d, n_pad, 1, batch=(S,), device=dev)
+    Xq = torch.tensor(rng.uniform(size=(m, d)), dtype=torch.float32, device=dev)
+    before = gram.fused_masked_gram_batch.launches, chol_base.chol_inv_base.launches
+    idx, draws = pathwise.pathwise_topk_hyper(
+        spec, torch.tensor(rows, dtype=torch.float32, device=dev), data(torch.float32), Xq, rand,
+        0, 8, n_real=n, keep=range(S),
+    )
+    assert gram.fused_masked_gram_batch.launches == before[0] + 1
+    assert chol_base.chol_inv_base.launches > before[1]
+    d64 = data(torch.float64)
+    theta64 = torch.tensor(rows, dtype=torch.float64, device=dev)
+    K = gram.fused_masked_gram_plain(spec, theta64, d64.X, d64.alpha_diag, n)
+    L, _ = torch.linalg.cholesky_ex(K)
+    ev = torch.linalg.eigvalsh(K[:, :n, :n])
+    rand64 = pathwise.PathwiseRandoms(*(r.double() for r in rand))
+    ref = pathwise._draw_values(
+        spec, theta64, d64.X, d64, lambda R: torch.cholesky_solve(R, L), Xq.double(), rand64
+    )[..., 0]
+    eps32 = float(np.finfo(np.float32).eps)
+    tol = eps32 * (3 * n + ev[:, -1] / ev[:, 0]) * ref.abs().max(dim=1).values
+    err = (draws.double() - ref).abs().max(dim=1).values
+    assert bool((err <= tol).all()), (err, tol)
+    gap = ref.gather(1, idx[:, :1])[:, 0] - ref.min(dim=1).values
+    assert bool((gap <= tol).all())
+
