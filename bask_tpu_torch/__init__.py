@@ -5,6 +5,7 @@ module layout. Its hand-written CUDA kernels (``csrc/``: the gram kernels
 K1 and K2, the base Cholesky K3) build at first use on a CUDA tensor; on
 the CPU their plain PyTorch versions run. Entry points place their
 tensors on the CUDA card unless the caller names another device.
+``BayesSearchCV`` needs scikit-learn and is imported on first use.
 """
 
 from .acquisition import (
@@ -48,3 +49,13 @@ __all__ = [
     "expected_minimum",
     "validate_zeroone",
 ]
+
+
+def __getattr__(name):
+    # BayesSearchCV pulls in scikit-learn: import it on first use, so the
+    # package imports where scikit-learn is not installed
+    if name == "BayesSearchCV":
+        from .searchcv import BayesSearchCV
+
+        return BayesSearchCV
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -15,13 +15,24 @@ from .models import gp as gpc
 from .models.bayesgpr import BayesGPR
 from .ops import kernels as bk
 
-__all__ = ["kernel_spec", "gp_data", "fitted_bayesgpr"]
+__all__ = ["kernel_spec", "gp_data", "fitted_bayesgpr", "bayesgpr_from_jax"]
+
+# constructor fields of BayesGPR that both packages share
+_SETTINGS = (
+    "alpha", "noise", "normalize_y", "warp_inputs", "moves", "optimizer",
+    "n_restarts_optimizer", "copy_X_train", "chain_init", "ml2_subsample",
+    "ml2_objective",
+)
 
 
 def kernel_spec(kernel) -> bk.Kernel:
     """A ``bask_tpu.ops.kernels`` spec tree -> the port's spec (same theta
     order, values and bounds). Raises for kernels the port lacks."""
     name = type(kernel).__name__
+    if name == "CompoundKernel":
+        return bk.CompoundKernel(tuple(kernel_spec(k) for k in kernel.kernels))
+    if name == "Exponentiation":
+        return bk.Exponentiation(kernel_spec(kernel.kernel), kernel.exponent)
     if name in ("Sum", "Product"):
         cls = bk.Sum if name == "Sum" else bk.Product
         return cls(kernel_spec(kernel.k1), kernel_spec(kernel.k2))
@@ -71,6 +82,7 @@ def fitted_bayesgpr(
     device=None,
     dtype=torch.float64,
     random_state=None,
+    **settings,
 ) -> BayesGPR:
     """A fitted JAX ``BayesGPR``'s state -> a fitted port ``BayesGPR``.
 
@@ -87,6 +99,8 @@ def fitted_bayesgpr(
     normalization other than 0/1) decides whether a later fit on new
     data standardizes its targets. The consensus posterior and LML are
     recomputed by the port, on ``device`` (``None``: the CUDA card).
+    ``settings`` are further constructor fields (``optimizer``,
+    ``chain_init``, ``ml2_objective``, ...).
     """
     spec = kernel_spec(kernel)
     if normalize_y is None:
@@ -94,7 +108,7 @@ def fitted_bayesgpr(
     gpr = BayesGPR(
         kernel=spec, alpha=alpha, noise=None, random_state=random_state,
         normalize_y=bool(normalize_y), warp_inputs=warp_alphas is not None,
-        device=device, dtype=dtype,
+        device=device, dtype=dtype, **settings,
     )
     gpr._spec = spec
     gpr.y_train_mean_ = float(y_mean)
@@ -113,3 +127,31 @@ def fitted_bayesgpr(
     gpr.theta = theta  # refreshes the consensus posterior and its LML
     gpr.log_marginal_likelihood_value_ = float(gpr._consensus_lml_)
     return gpr
+
+
+def bayesgpr_from_jax(gp, device=None, dtype=torch.float64) -> BayesGPR:
+    """A ``bask_tpu`` BayesGPR -> the port's, with the same constructor
+    fields (kernel, alpha, noise, normalize_y, warp_inputs, moves, the fit
+    options) and a copy of its random state; a fitted model also carries
+    its fitted state (:func:`fitted_bayesgpr`), and the user kernel stays
+    the one a later ``fit`` starts from."""
+    settings = {k: getattr(gp, k) for k in _SETTINGS}
+    rs = np.random.RandomState()
+    rs.set_state(gp.random_state.get_state())
+    if gp._post is None or gp._theta is None:
+        return BayesGPR(
+            kernel=kernel_spec(gp._user_kernel), random_state=rs,
+            device=device, dtype=dtype, **settings,
+        )
+    ours = fitted_bayesgpr(
+        kernel=gp._spec, theta=gp.theta, chain=gp.chain_, pos=gp.pos_, X=gp._X_orig,
+        y=gp._y_orig, noise=gp.noise_, y_mean=gp.y_train_mean_, y_std=gp.y_train_std_,
+        noise_vector=gp._noise_vector, warp_alphas=gp.warp_alphas_,
+        warp_betas=gp.warp_betas_, chain_steps=gp.chain_steps_,
+        n_accepted=gp.n_accepted_, n_proposals=gp.n_proposals_,
+        device=device, dtype=dtype, random_state=rs,
+        **{k: v for k, v in settings.items() if k not in ("noise", "warp_inputs")},
+    )
+    ours._user_kernel = kernel_spec(gp._user_kernel)
+    ours.noise = gp.noise
+    return ours

@@ -26,15 +26,27 @@ Pathwise draws (:mod:`bask_tpu_torch.models.pathwise`) give
 the batch-ask path over large candidate grids; :meth:`BayesGPR.mcmc_diagnostics`
 reports split R-hat, ESS and autocorrelation times of the kept chain.
 
-Not ported: row-sharded mode, Laplace chain init, the MAP ML-II
-objective, ML-II subsampling, ``optimizer=None``, host-callback priors
-and serialization.
+The fit options are the JAX package's: ``optimizer`` (``"lbfgs"``, SciPy's
+L-BFGS-B on autograd value and gradient; ``"lbfgs-device"``, a batched
+L-BFGS over all starts on the model's device; ``None``, no warm start),
+``n_restarts_optimizer``, ``ml2_objective`` (``"map"`` adds the guessed
+priors), ``ml2_subsample`` (the warm start on a random subset) and
+``chain_init="laplace"`` (a cold ensemble drawn from the Laplace
+approximation at the posterior mode). Priors may be torch functions, a
+frozen SciPy distribution's ``logpdf`` (lifted to torch by
+:mod:`bask_tpu_torch.utils.scipy_lift`) or any NumPy callable, which runs
+on the host through an adapter. Models pickle with their tensors as
+NumPy and come back on their device.
+
+Not ported: row-sharded mode (``row_mesh``) and the tabulated priors of
+``host_prior_mode="interp"``.
 """
 
 from __future__ import annotations
 
 import math
 import warnings
+from collections import OrderedDict
 from contextlib import contextmanager
 from typing import Optional
 
@@ -121,17 +133,187 @@ def _make_log_prob_batch(kernel, priors, data, n_real, warp_prior=None, n_warp=0
 def _neg_lml_plain(kernel, theta, data):
     """Negative LML through the plain factorization (``cholesky_ex``
     plus a triangular solve), never the blocked kernels: autograd
-    differentiates it for the ML-II warm start. NaN where not PD."""
+    differentiates it for the ML-II warm start, the MAP objective and the
+    Laplace Hessian. ``theta`` may be batched (..., n_theta) -> (...,).
+    NaN where the gram is not PD."""
     Kp = masked_gram(kernel, theta, data.X, data.alpha_diag, data.mask)
     L = masked_cholesky(Kp)
-    w = torch.linalg.solve_triangular(L, data.y[:, None], upper=False)[:, 0]
+    yb = data.y.expand(Kp.shape[:-1])
+    w = torch.linalg.solve_triangular(L, yb[..., None], upper=False)[..., 0]
     n = data.mask.sum().to(data.y.dtype)
-    lml = (
-        -0.5 * (w * w).sum()
-        - torch.where(data.mask, torch.log(L.diagonal()), 0.0).sum()
-        - 0.5 * n * math.log(2.0 * math.pi)
-    )
+    logdiag = torch.where(data.mask, torch.log(L.diagonal(dim1=-2, dim2=-1)), 0.0)
+    lml = -0.5 * (w * w).sum(-1) - logdiag.sum(-1) - 0.5 * n * math.log(2.0 * math.pi)
     return -lml
+
+
+def _theta_block_logpost(data, x0, kernel, priors, n_warp):
+    """(log posterior as a function of the kernel-theta block, that
+    block of ``x0``): the warp parameters are held at ``x0``'s warp slice
+    (the JAX package has no betainc derivatives in a and b, so the Laplace
+    init gives those dimensions the ball width instead)."""
+    n_theta = x0.shape[0] - 2 * n_warp
+    if n_warp:
+        _, la, lb = wp.split_warp_params(x0, n_warp)
+        data = data._replace(X=wp.warp(data.X, la, lb))
+
+    def scalar(tg):
+        return _eval_priors(priors, tg) - _neg_lml_plain(kernel, tg, data)
+
+    return scalar, x0[:n_theta]
+
+
+def _log_post_value_grad(data, x0, kernel, priors, n_warp):
+    """(-log posterior, its gradient) over the kernel-theta block at
+    ``x0``, as float64 NumPy: the host L-BFGS-B's objective (with
+    ``priors=()`` the negative LML)."""
+    scalar, x0g = _theta_block_logpost(data, x0, kernel, priors, n_warp)
+    x0g = x0g.detach().requires_grad_(True)
+    with torch.enable_grad():
+        v = -scalar(x0g)
+        (g,) = torch.autograd.grad(v, x0g)
+    return float(v.detach()), g.detach().cpu().double().numpy()
+
+
+def _log_post_hessian(data, x0, kernel, priors, n_warp):
+    """Kernel-theta Hessian of the log posterior at ``x0`` for the Laplace
+    chain init, by double backward through the plain factorization."""
+    scalar, x0g = _theta_block_logpost(data, x0, kernel, priors, n_warp)
+    with torch.enable_grad():
+        H = torch.autograd.functional.hessian(scalar, x0g.detach())
+    return H.detach().cpu().double().numpy()
+
+
+# Laplace-init spread guards (log-space hyperparameters), the JAX
+# package's: directions with vanishing or negative curvature at the MAP
+# point are capped at prior-scale width, and razor-sharp modes keep at
+# least the 1e-2 ball width.
+_LAPLACE_STD_MAX = 1.0
+_LAPLACE_STD_MIN = 1e-2
+
+# The device L-BFGS: curvature pairs kept, and the step lengths 2^-k,
+# k < _LBFGS_STEPS, tried at once along each search direction.
+_LBFGS_HISTORY = 10
+_LBFGS_STEPS = 10
+
+
+def _ml2_device(theta0s, data, lb, ub, kernel, maxiter=60):
+    """The ML-II warm start as a batched L-BFGS over all starts at once,
+    on the data's device, with no host round trip inside.
+
+    Bounds as in the JAX package's ``_ml2_lbfgs_core``: theta = lb +
+    (ub - lb) sigmoid(u), the objective the negative LML with a finite
+    1e25 where the factorization fails, and non-finite gradients taken as
+    0. Each iteration evaluates value and gradient at ``_LBFGS_STEPS``
+    step lengths along every start's direction in one batch and keeps the
+    longest that meets Armijo's condition; a start where none does stays
+    put and drops its curvature pairs. Runs ``maxiter`` iterations and
+    returns the best start's theta (a (n_theta,) tensor)."""
+    B, D = theta0s.shape
+    dt, dev = theta0s.dtype, theta0s.device
+    width = ub - lb
+
+    def to_t(u):
+        return lb + width * torch.sigmoid(u)
+
+    def value_grad(u):
+        u = u.detach().requires_grad_(True)
+        with torch.enable_grad():
+            v = _neg_lml_plain(kernel, to_t(u), data)
+            v = torch.where(torch.isfinite(v), v, 1e25)
+            (g,) = torch.autograd.grad(v.sum(), u)
+        return v.detach(), torch.where(torch.isfinite(g), g, 0.0)
+
+    p0 = ((theta0s - lb) / width).clamp(1e-6, 1.0 - 1e-6)
+    u = torch.log(p0) - torch.log1p(-p0)
+    f, g = value_grad(u)
+    S = torch.zeros(B, _LBFGS_HISTORY, D, dtype=dt, device=dev)
+    Y = torch.zeros_like(S)
+    rho = torch.zeros(B, _LBFGS_HISTORY, dtype=dt, device=dev)  # 0: no pair
+    gamma = torch.ones(B, dtype=dt, device=dev)
+    steps = 2.0 ** -torch.arange(_LBFGS_STEPS, dtype=dt, device=dev)
+    rows = torch.arange(B, device=dev)
+    for k in range(maxiter):
+        # two-loop recursion, newest pair first; empty pairs contribute 0
+        order = [(k - 1 - j) % _LBFGS_HISTORY for j in range(_LBFGS_HISTORY)]
+        q, alphas = g.clone(), {}
+        for j in order:
+            alphas[j] = rho[:, j] * (S[:, j] * q).sum(-1)
+            q = q - alphas[j][:, None] * Y[:, j]
+        r = gamma[:, None] * q
+        for j in reversed(order):
+            beta = rho[:, j] * (Y[:, j] * r).sum(-1)
+            r = r + S[:, j] * (alphas[j] - beta)[:, None]
+        steepest = -g / g.norm(dim=-1, keepdim=True).clamp(min=1.0)
+        p = torch.where(((rho > 0).any(-1) & ((g * -r).sum(-1) < 0))[:, None], -r, steepest)
+        slope = (g * p).sum(-1)
+        cand = u[:, None, :] + steps[None, :, None] * p[:, None, :]
+        fc, gc = value_grad(cand.reshape(B * _LBFGS_STEPS, D))
+        fc, gc = fc.reshape(B, _LBFGS_STEPS), gc.reshape(B, _LBFGS_STEPS, D)
+        armijo = fc <= f[:, None] + 1e-4 * steps[None, :] * slope[:, None]
+        moved = armijo.any(-1)
+        pick = torch.argmax(armijo.to(dt), dim=-1)  # the longest step that passes
+        u_new = torch.where(moved[:, None], cand[rows, pick], u)
+        f_new = torch.where(moved, fc[rows, pick], f)
+        g_new = torch.where(moved[:, None], gc[rows, pick], g)
+        s, y = u_new - u, g_new - g
+        sy = (s * y).sum(-1)
+        valid = moved & (sy > 1e-10 * s.norm(dim=-1) * y.norm(dim=-1))
+        slot = k % _LBFGS_HISTORY
+        S[:, slot], Y[:, slot] = s, y
+        rho[:, slot] = torch.where(valid, 1.0 / torch.where(valid, sy, 1.0), 0.0)
+        rho = torch.where(moved[:, None], rho, 0.0)
+        gamma = torch.where(valid, sy / (y * y).sum(-1).clamp(min=1e-30), gamma)
+        u, f, g = u_new, f_new, g_new
+    return to_t(u[torch.argmin(f)])
+
+
+class _HostPrior:
+    """A log-prior that only NumPy can evaluate, run on the host: theta is
+    copied to the host as float64 (one device-to-host sync per call), the
+    prior evaluated there, and the result copied back. ``joint=False``:
+    an elementwise prior of one log-parameter (vectorized with
+    ``np.vectorize``); ``joint=True``: one value per theta vector. It has
+    no gradient: on a tensor that requires one it raises, and the Laplace
+    init then falls back to the ball, as the JAX package's host callback
+    does."""
+
+    def __init__(self, p, joint: bool):
+        self.p = p
+        self.joint = joint
+
+    def __call__(self, x):
+        if x.requires_grad:
+            raise TypeError("a host (NumPy) prior has no gradient")
+        v = x.detach().cpu().double().numpy()
+        if self.joint:
+            flat = v.reshape(-1, v.shape[-1])
+            out = np.array([float(self.p(row)) for row in flat]).reshape(v.shape[:-1])
+        else:
+            out = np.vectorize(self.p, otypes=[np.float64])(v)
+        return torch.as_tensor(out, dtype=x.dtype).to(x.device)
+
+
+class _VmappedPrior:
+    """A joint torch prior written for one theta vector, batched over the
+    leading dimensions of theta by ``torch.vmap``."""
+
+    def __init__(self, p):
+        self.p = p
+
+    def __call__(self, x):
+        if x.ndim == 1:
+            return self.p(x)
+        flat = x.reshape(-1, x.shape[-1])
+        return torch.vmap(self.p)(flat).reshape(x.shape[:-1])
+
+
+def _returns_batch(fn, probe, n):
+    """True if ``fn(probe)`` gives an (n,) tensor on ``probe``'s device."""
+    try:
+        out = fn(probe)
+    except Exception:  # a user prior that cannot take this tensor
+        return False
+    return isinstance(out, torch.Tensor) and out.shape == (n,) and out.device == probe.device
 
 
 def _posterior_robust_body(theta, data, kernel):
@@ -154,6 +336,23 @@ def _consensus_body(kernel, theta, data):
     """Robust factorization and LML: the consensus refresh."""
     post = _posterior_robust_body(theta, data, kernel)
     return post, gpc.log_marginal_likelihood(kernel, theta, data)
+
+
+def _to_numpy(nt):
+    """A GPData/GPPosterior with its tensors as NumPy arrays."""
+    return nt._replace(**{
+        k: v.detach().cpu().numpy() for k, v in nt._asdict().items()
+        if isinstance(v, torch.Tensor)
+    })
+
+
+def _to_device(nt, device):
+    """The inverse of :func:`_to_numpy` on ``device`` (tensors of a model
+    pickled before ``__getstate__`` existed move there as well)."""
+    return nt._replace(**{
+        k: torch.as_tensor(v).to(device) for k, v in nt._asdict().items()
+        if isinstance(v, (np.ndarray, torch.Tensor))
+    })
 
 
 def _canonical_moves(moves):
@@ -202,9 +401,18 @@ class BayesGPR:
     float32); ``noise="gaussian"`` appends a WhiteKernel at fit time;
     ``warp_inputs`` learns a Beta-CDF warp of each input dimension (inputs
     in [0, 1]); ``normalize_y`` standardizes the targets by their mean and
-    standard deviation at every new data set. ``fit`` always runs the
-    ML-II warm start. ``moves``
-    picks the ensemble moves (default ``"auto"``: demix at W >= 6).
+    standard deviation at every new data set. ``moves`` picks the ensemble
+    moves (default ``"auto"``: demix at W >= 6).
+
+    The warm start: ``optimizer`` (``"lbfgs"``, ``"lbfgs-device"`` or
+    ``None`` for theta0), ``n_restarts_optimizer`` extra starts drawn
+    uniformly in the bounds, ``ml2_objective`` (``"lml"`` or ``"map"``),
+    ``ml2_subsample`` (optimize on that many random points);
+    ``chain_init`` (``"ball"`` or ``"laplace"``) places a cold ensemble.
+    ``copy_X_train`` copies the training arrays. ``host_prior_mode`` and
+    the row-mode arguments (``row_mesh``, ``row_nb``, ``row_unroll``,
+    ``row_grad_method``) are accepted at their defaults only.
+
     ``device`` and ``dtype`` place the training data, the chain and the
     posterior; ``device=None`` is the CUDA card. Host-side state
     (``theta``, ``chain_``, ``pos_``, ``warp_alphas_``, ``warp_betas_``)
@@ -220,17 +428,58 @@ class BayesGPR:
         normalize_y: bool = False,
         warp_inputs: bool = False,
         moves="auto",
+        optimizer: Optional[str] = "lbfgs",
+        n_restarts_optimizer: int = 0,
+        copy_X_train: bool = True,
+        chain_init: str = "ball",
+        ml2_subsample: Optional[int] = None,
+        ml2_objective: str = "lml",
+        host_prior_mode: str = "callback",
+        row_mesh=None,
+        row_nb: int = 256,
+        row_unroll: bool = False,
+        row_grad_method: str = "adjoint",
         device=None,
         dtype=torch.float32,
     ):
         if kernel is None:
             kernel = bk.ConstantKernel(1.0, (0.1, 2.0)) * bk.RBF(1.0, (1e-5, 1e5))
+        if host_prior_mode not in ("callback", "interp"):
+            raise ValueError(
+                "host_prior_mode must be 'callback' (exact, needs backend "
+                "callback support) or 'interp' (approximate on-device "
+                f"tabulation), got {host_prior_mode!r}"
+            )
+        if host_prior_mode == "interp":
+            raise NotImplementedError(
+                "host_prior_mode='interp' (tabulated priors) is not ported to "
+                "PyTorch (ROADMAP.md queue 1, item 9: tunnel-only code); the "
+                "port runs NumPy priors exactly on the host ('callback')."
+            )
+        if (row_mesh, row_nb, row_unroll, row_grad_method) != (None, 256, False, "adjoint"):
+            raise NotImplementedError(
+                "row-sharded mode (row_mesh, row_nb, row_unroll, "
+                "row_grad_method) is not ported to PyTorch yet (ROADMAP.md "
+                "queue 1, item 8: multi-GPU); leave them at their defaults."
+            )
+        if chain_init not in ("ball", "laplace"):
+            raise ValueError(f"chain_init must be 'ball' or 'laplace', got {chain_init!r}")
+        if ml2_subsample is not None and int(ml2_subsample) < 2:
+            raise ValueError(f"ml2_subsample must be >= 2 points, got {ml2_subsample}")
+        if ml2_objective not in ("lml", "map"):
+            raise ValueError(f"ml2_objective must be 'lml' or 'map', got {ml2_objective!r}")
         self._user_kernel = kernel
         self.alpha = alpha
         self.noise = noise
         self.normalize_y = normalize_y
         self.warp_inputs = warp_inputs
         self.moves = _canonical_moves(moves)
+        self.optimizer = optimizer
+        self.n_restarts_optimizer = n_restarts_optimizer
+        self.copy_X_train = copy_X_train
+        self.chain_init = chain_init
+        self.ml2_subsample = None if ml2_subsample is None else int(ml2_subsample)
+        self.ml2_objective = ml2_objective
         self.device = torch.device("cuda" if device is None else device)
         self.dtype = dtype
         if isinstance(random_state, np.random.RandomState):
@@ -256,11 +505,41 @@ class BayesGPR:
         self._y_orig: Optional[np.ndarray] = None
         self._noise_vector: Optional[np.ndarray] = None
         self._priors_cache = None
+        # resolved non-torch priors by (prior, joint): lifts and host adapters
+        self._prior_cache = OrderedDict()
         self._noise_zero = False
         self.n_accepted_ = 0
         self.n_proposals_ = 0
         self.y_train_mean_ = 0.0
         self.y_train_std_ = 1.0
+
+    def __getstate__(self):
+        """Tensors go to the pickle as NumPy (a pickle made on the card
+        loads without one), and resolved priors are dropped (they are
+        derived again)."""
+        state = self.__dict__.copy()
+        for name in ("_data", "_post_data", "_post"):
+            if state.get(name) is not None:
+                state[name] = _to_numpy(state[name])
+        lml = state.get("_consensus_lml_")
+        if isinstance(lml, torch.Tensor):
+            state["_consensus_lml_"] = float(lml)
+        state["_priors_cache"] = None
+        state["_prior_cache"] = OrderedDict()
+        return state
+
+    def __setstate__(self, state):
+        # defaults for models pickled before these attributes existed
+        for name, default in (
+            ("optimizer", "lbfgs"), ("n_restarts_optimizer", 0), ("copy_X_train", True),
+            ("chain_init", "ball"), ("ml2_subsample", None), ("ml2_objective", "lml"),
+        ):
+            state.setdefault(name, default)
+        state["_prior_cache"] = OrderedDict()
+        self.__dict__.update(state)
+        for name in ("_data", "_post_data", "_post"):
+            if getattr(self, name, None) is not None:
+                setattr(self, name, _to_device(getattr(self, name), self.device))
 
     # -- basic properties --------------------------------------------------
 
@@ -285,10 +564,17 @@ class BayesGPR:
     def X_train_(self, X_train):
         """Replace the training inputs (original, unwarped space); the
         warped view and the posterior are rederived."""
-        self._X_orig = np.array(X_train, dtype=float, ndmin=2)
+        X_train = np.atleast_2d(np.asarray(X_train, dtype=float))
+        self._X_orig = np.copy(X_train) if self.copy_X_train else X_train
         if self._y_orig is not None:
             self._upload()
             self._refresh_posterior(with_lml=False)
+
+    @property
+    def y_train_(self):
+        if self._y_orig is None:
+            return None
+        return (self._y_orig - self.y_train_mean_) / self.y_train_std_
 
     @property
     def theta(self):
@@ -313,6 +599,15 @@ class BayesGPR:
         return self._post.alpha_dual[: len(self._y_orig)].cpu().numpy()
 
     @property
+    def K_inv_(self):
+        """Inverse of the (noisy) training gram, unpadded, from the factor."""
+        if self._post is None:
+            return None
+        n = len(self._y_orig)
+        L_inv = np.linalg.solve(self.L_.astype(float), np.eye(n))
+        return L_inv.T @ L_inv
+
+    @property
     def white_index_(self):
         return None if self._spec is None else bk.white_theta_index(self._spec)
 
@@ -322,8 +617,10 @@ class BayesGPR:
     # -- data management ---------------------------------------------------
 
     def _set_data(self, X, y, noise_vector):
-        self._X_orig = np.array(X, dtype=float, ndmin=2)
-        self._y_orig = np.array(y, dtype=float).ravel()
+        X = np.atleast_2d(np.asarray(X, dtype=float))
+        y = np.asarray(y, dtype=float).ravel()
+        self._X_orig = np.copy(X) if self.copy_X_train else X
+        self._y_orig = np.copy(y) if self.copy_X_train else y
         if self.normalize_y:
             self.y_train_mean_ = float(np.mean(self._y_orig))
             self.y_train_std_ = float(np.std(self._y_orig)) or 1.0
@@ -334,9 +631,19 @@ class BayesGPR:
         self._noise_vector = noise_vector
         self._upload()
 
-    def _upload(self):
-        """(Re)build the padded device-side GPData."""
-        X, y = self._X_orig, self._y_orig
+    def _noise_rows(self):
+        """The per-point noise of the training rows (normalized units), or
+        None."""
+        if self._noise_vector is None:
+            return None
+        nv = np.zeros(len(self._y_orig))
+        v = np.asarray(self._noise_vector, dtype=float)
+        nv[: len(v)] += v
+        return nv
+
+    def _build_padded_data(self, X, y, noise_rows=None):
+        """Padded device-side GPData of raw rows with the model's
+        normalization, jitter floor and 64-bucket."""
         n, d = X.shape
         n_pad = _bucket(n)
         Xp = np.full((n_pad, d), 0.5)
@@ -349,10 +656,9 @@ class BayesGPR:
         if self.dtype == torch.float32:
             base_alpha = max(base_alpha, 1e-6)
         alpha = np.full(n_pad, base_alpha)
-        if self._noise_vector is not None:
-            nv = np.asarray(self._noise_vector, dtype=float)
-            alpha[: len(nv)] += nv
-        self._data = gpc.make_data(
+        if noise_rows is not None:
+            alpha[:n] += noise_rows
+        return gpc.make_data(
             self._tensor(Xp),
             self._tensor(yp),
             self._tensor(alpha),
@@ -360,6 +666,10 @@ class BayesGPR:
             y_mean=self.y_train_mean_,
             y_std=self.y_train_std_,
         )
+
+    def _upload(self):
+        """(Re)build the padded device-side GPData."""
+        self._data = self._build_padded_data(self._X_orig, self._y_orig, self._noise_rows())
 
     def _n_warp(self) -> int:
         return self._X_orig.shape[1] if self.warp_inputs else 0
@@ -391,35 +701,195 @@ class BayesGPR:
     # -- ML-II warm start --------------------------------------------------
 
     def _ml2_optimize(self):
-        """scipy L-BFGS-B on the negative LML, with value and gradient from
-        autograd through the plain factorization. The result only seeds
-        the chain, so iterations are capped at 60."""
+        """The warm start's theta, as the JAX package computes it: on a
+        random ``ml2_subsample``-point subset where set (the full data's
+        normalization), from ``theta0`` and ``n_restarts_optimizer`` starts
+        drawn uniformly in the bounds; SciPy's L-BFGS-B on the negative LML
+        (or, with ``ml2_objective="map"``, the negative log posterior under
+        the guessed priors) with value and gradient from autograd through
+        the plain factorization, or ``optimizer="lbfgs-device"``. The
+        result only seeds the chain, so iterations are capped at 60."""
+        kernel, data = self._spec, self._data
+        bounds = kernel.bounds
+        n = self._X_orig.shape[0]
+        if self.ml2_subsample is not None and n > self.ml2_subsample:
+            idx = np.sort(self.random_state.choice(n, size=self.ml2_subsample, replace=False))
+            noise_rows = self._noise_rows()
+            data = self._build_padded_data(
+                self._X_orig[idx], self._y_orig[idx],
+                None if noise_rows is None else noise_rows[idx],
+            )
+        objective = self.ml2_objective
+        # the bare LML is the log posterior under no priors
+        priors = self._resolve_priors(None) if objective == "map" else ()
+        starts = [kernel.theta0]
+        for _ in range(self.n_restarts_optimizer):
+            starts.append(self.random_state.uniform(bounds[:, 0], bounds[:, 1]))
+
+        if self.optimizer == "lbfgs-device" and objective == "map":
+            warnings.warn(
+                "ml2_objective='map' is implemented on the host L-BFGS-B "
+                "optimizer only; ignoring optimizer='lbfgs-device' for this fit.",
+                UserWarning,
+            )
+        elif self.optimizer == "lbfgs-device":
+            if np.isfinite(bounds).all() and (bounds[:, 1] > bounds[:, 0]).all():
+                best = _ml2_device(
+                    self._tensor(np.stack(starts)), data, self._tensor(bounds[:, 0]),
+                    self._tensor(bounds[:, 1]), kernel,
+                )
+                return best.cpu().double().numpy()
+            # the sigmoid reparameterization needs finite, non-degenerate
+            # bounds; L-BFGS-B handles both
+            warnings.warn(
+                "optimizer='lbfgs-device' requires finite, non-degenerate "
+                "hyperparameter bounds; falling back to the host L-BFGS-B "
+                "optimizer for this fit.",
+                UserWarning,
+            )
+
         from scipy.optimize import minimize
 
-        kernel, data = self._spec, self._data
-
         def obj(t):
-            theta = self._tensor(t).requires_grad_(True)
-            v = _neg_lml_plain(kernel, theta, data)
-            if not bool(torch.isfinite(v)):
+            v, g = _log_post_value_grad(data, self._tensor(t), kernel, priors, 0)
+            if not np.isfinite(v):
                 return 1e25, np.zeros_like(t)
-            (g,) = torch.autograd.grad(v, theta)
-            return float(v), g.detach().cpu().double().numpy()
+            return v, g
 
-        res = minimize(
-            obj, kernel.theta0, jac=True, method="L-BFGS-B", bounds=kernel.bounds,
-            options={"maxiter": 60},
-        )
-        return np.asarray(res.x, dtype=float)
+        best_t, best_v = None, np.inf
+        for t0 in starts:
+            res = minimize(
+                obj, t0, jac=True, method="L-BFGS-B", bounds=bounds,
+                options={"maxiter": 60},
+            )
+            if res.fun < best_v:
+                best_t, best_v = res.x, res.fun
+        return np.asarray(best_t, dtype=float)
 
     # -- sampling ----------------------------------------------------------
 
     def _resolve_priors(self, priors):
+        """The priors as the chain evaluates them: guessed from the kernel
+        (``None``), or each user prior as :meth:`_resolve_prior` gives it."""
         if priors is None:
             if self._priors_cache is None:
                 self._priors_cache = tuple(guess_priors(self._spec))
             return self._priors_cache
-        return priors if callable(priors) else tuple(priors)
+        if callable(priors):
+            return self._resolve_prior(priors, joint=True)
+        return tuple(self._resolve_prior(p, joint=False) for p in priors)
+
+    def _resolve_prior(self, p, joint: bool):
+        """``p`` itself where it maps a tensor of the model's dtype and
+        device to a tensor there (elementwise on (W,), or joint on
+        (W, n_theta) -> (W,)); a joint torch prior of one theta vector,
+        batched by ``torch.vmap``; an exact torch lift of a frozen SciPy
+        ``logpdf``; else a :class:`_HostPrior`, with a warning once per
+        prior (the JAX package's ``_traceable_or_host``)."""
+        probe = torch.zeros((2, self._spec.n_theta) if joint else (2,),
+                            dtype=self.dtype, device=self.device)
+        if _returns_batch(p, probe, 2):
+            return p
+        try:
+            cached = self._prior_cache.get((p, joint))
+        except TypeError:  # unhashable callable: no cache
+            cached = None
+        if cached is not None:
+            return cached
+        resolved = None
+        if joint:
+            batched = _VmappedPrior(p)
+            if _returns_batch(batched, probe, 2):
+                resolved = batched
+        else:
+            from ..utils.scipy_lift import lift_scipy_prior
+
+            resolved = lift_scipy_prior(p)
+        if resolved is None:
+            warnings.warn(
+                "A gp prior is not a torch function and runs on the host "
+                "through an adapter: one device-to-host copy of theta (a "
+                "sync) per log-probability, which stalls the chain on a GPU. "
+                "Write priors with torch (see bask_tpu_torch.utils.priors), "
+                "or pass a frozen scipy distribution's logpdf directly "
+                "(common families are lifted to exact torch code).",
+                UserWarning,
+                stacklevel=4,
+            )
+            resolved = _HostPrior(p, joint)
+        try:
+            self._prior_cache[(p, joint)] = resolved
+            while len(self._prior_cache) > 64:
+                self._prior_cache.popitem(last=False)
+        except TypeError:
+            pass
+        return resolved
+
+    def _laplace_positions(self, theta, n_walkers, priors, n_warp):
+        """(W, D) cold-start positions from the Laplace approximation
+        N(theta_MAP, H^-1), or ``None`` where the curvature is unusable
+        (the caller falls back to the ball), as the JAX package computes
+        them: the theta block is refined to the posterior mode by an
+        unbounded L-BFGS-B (50 iterations) on the exact log posterior, the
+        Hessian taken there (central differences of the gradient where the
+        double backward is not finite), its eigendirections' spreads
+        clamped to [``_LAPLACE_STD_MIN``, ``_LAPLACE_STD_MAX``]; warp
+        dimensions keep the ball width."""
+        theta = np.asarray(theta, dtype=float)
+        n_theta = theta.shape[0] - 2 * n_warp
+
+        def grad_at(tg):
+            x = self._tensor(np.concatenate([tg, theta[n_theta:]]))
+            return _log_post_value_grad(self._data, x, self._spec, priors, n_warp)
+
+        try:
+            from scipy.optimize import minimize
+
+            def obj(tg):
+                v, g = grad_at(tg)
+                if not np.isfinite(v):
+                    return 1e25, np.zeros_like(g)
+                return v, g
+
+            res = minimize(obj, theta[:n_theta], jac=True, method="L-BFGS-B",
+                           options={"maxiter": 50})
+            center = theta.copy()
+            if np.isfinite(res.fun) and np.all(np.isfinite(res.x)):
+                center[:n_theta] = res.x
+            H = _log_post_hessian(self._data, self._tensor(center), self._spec, priors, n_warp)
+            if not np.all(np.isfinite(H)):
+                eps = 1e-2
+                Hfd = np.empty((n_theta, n_theta))
+                for i in range(n_theta):
+                    tp = center[:n_theta].copy()
+                    tm = center[:n_theta].copy()
+                    tp[i] += eps
+                    tm[i] -= eps
+                    # grad_at is the NEGATIVE log posterior's gradient
+                    Hfd[:, i] = -(grad_at(tp)[1] - grad_at(tm)[1]) / (2.0 * eps)
+                H = Hfd
+        except Exception as e:  # host priors have no gradient, etc.
+            warnings.warn(
+                f"chain_init='laplace' could not evaluate the "
+                f"log-posterior Hessian ({type(e).__name__}: {e}); "
+                "falling back to the ball init.",
+                UserWarning,
+                stacklevel=3,
+            )
+            return None
+        if not np.all(np.isfinite(H)):
+            return None
+        prec = -0.5 * (H + H.T)  # symmetrized negative Hessian
+        w, V = np.linalg.eigh(prec)
+        with np.errstate(divide="ignore"):
+            std = np.where(w > 0, 1.0 / np.sqrt(np.abs(w) + 1e-300), np.inf)
+        std = np.clip(std, _LAPLACE_STD_MIN, _LAPLACE_STD_MAX)
+        z = self.random_state.randn(n_walkers, theta.shape[0])
+        pos = np.empty((n_walkers, theta.shape[0]))
+        pos[:, :n_theta] = center[None, :n_theta] + (z[:, :n_theta] * std[None, :]) @ V.T
+        if n_warp:
+            pos[:, n_theta:] = center[None, n_theta:] + _LAPLACE_STD_MIN * z[:, n_theta:]
+        return pos
 
     @staticmethod
     def _resolve_warp_priors(warp_priors):
@@ -456,13 +926,17 @@ class BayesGPR:
         until_rhat: Optional[float] = None,
         max_extensions: int = 10,
         extension_steps: Optional[int] = None,
+        chain_init: Optional[str] = None,
         _consensus: bool = True,
         **kwargs,
     ):
         """Sample the kernel-hyperparameter posterior on the device.
 
-        Warm-starts from ``pos_`` when its shape fits, otherwise from a
-        1e-2 ball around the current theta; runs
+        Warm-starts from ``pos_`` when its shape fits, otherwise cold:
+        from a 1e-2 ball around the current theta, or with ``chain_init``
+        (``None``: the constructor's) ``"laplace"`` from the Laplace
+        approximation at the posterior mode (the ball where its curvature
+        is unusable); runs
         ``ceil(n_desired_samples / n_walkers) + n_burnin`` steps and sets
         the consensus model at the geometric median of the kept chain.
         ``until_rhat`` then warm-extends the chain in legs of
@@ -481,7 +955,8 @@ class BayesGPR:
         if until_rhat is not None:
             self.sample(
                 X, y, noise_vector, n_desired_samples=n_desired_samples,
-                n_burnin=n_burnin, position=position, add=add, **common,
+                n_burnin=n_burnin, position=position, add=add,
+                chain_init=chain_init, **common,
             )
 
             def _second_half_rhat():
@@ -570,7 +1045,14 @@ class BayesGPR:
                 theta[bad] = math.log(self.noise_) if usable else -10.0
             # warp dimensions start at the identity warp, log a = log b = 0
             theta = np.concatenate([theta, np.zeros(2 * n_warp)])
-            pos = theta[None, :] + 1e-2 * self.random_state.randn(n_walkers, n_dim)
+            ci = self.chain_init if chain_init is None else chain_init
+            if ci not in ("ball", "laplace"):
+                raise ValueError(f"chain_init must be 'ball' or 'laplace', got {ci!r}")
+            pos = None
+            if ci == "laplace":
+                pos = self._laplace_positions(theta, n_walkers, priors, n_warp)
+            if pos is None:
+                pos = theta[None, :] + 1e-2 * self.random_state.randn(n_walkers, n_dim)
         seed = int(self.random_state.randint(0, 2**31 - 1))
 
         moves = _canonical_moves(moves) if moves is not None else self.moves
@@ -647,15 +1129,15 @@ class BayesGPR:
         position=None,
         **kwargs,
     ):
-        """ML-II warm start (kernel theta at the identity warp), then
-        hyperposterior sampling."""
+        """ML-II warm start (kernel theta at the identity warp; theta0
+        with ``optimizer=None``), then hyperposterior sampling."""
         if self.noise == "gaussian" and bk.white_theta_index(self._user_kernel) is None:
             self._spec = self._user_kernel + bk.WhiteKernel(1.0, (1e-5, 1e5))
         else:
             self._spec = self._user_kernel
         self._priors_cache = None
         self._set_data(X, y, noise_vector)
-        theta_ml = self._ml2_optimize()
+        theta_ml = self._ml2_optimize() if self.optimizer is not None else self._spec.theta0
         self._theta = theta_ml
         widx = self.white_index_
         if widx is not None:
@@ -721,16 +1203,69 @@ class BayesGPR:
             return gpc.noise_free_theta(self._spec, theta, self.white_index_)
         return theta
 
-    def _check_fitted(self):
-        if self._post is None:
-            raise ValueError("the model is not fitted: call fit first")
+    def _is_fitted(self) -> bool:
+        return self._post is not None and self._theta is not None
+
+    def _prior_kernel_theta(self):
+        """(kernel, theta0) of the GP prior for unfitted predictions: the
+        user kernel at its initial hyperparameters, without the WhiteKernel
+        that ``fit`` appends (sklearn GPR semantics, as in the JAX
+        package)."""
+        kernel = self._user_kernel
+        return kernel, self._tensor(kernel.theta0)
+
+    def _prior_predict(self, X, return_std, return_cov, return_mean_grad, return_std_grad):
+        """Predictions of the GP prior (unfitted model): mean 0, variance
+        from the kernel diagonal."""
+        kernel, theta = self._prior_kernel_theta()
+        Xq = self._tensor(X)
+        results = [np.zeros(Xq.shape[0])]
+        if return_cov:
+            results.append(kernel.eval(theta, Xq).cpu().numpy())
+        elif return_std:
+            results.append(torch.sqrt(torch.clamp(kernel.diag(theta, Xq), min=0.0)).cpu().numpy())
+        if return_mean_grad:
+            results.append(np.zeros(Xq.shape))
+        if return_std_grad:
+            # identically zero for stationary kernels, exact for any spec
+            Xg = Xq.clone().requires_grad_(True)
+            with torch.enable_grad():
+                std = torch.sqrt(torch.clamp(kernel.diag(theta, Xg), min=1e-30))
+                g = None
+                if std.requires_grad:
+                    (g,) = torch.autograd.grad(std.sum(), Xg, allow_unused=True)
+            results.append(np.zeros(Xq.shape) if g is None else g.cpu().numpy())
+        return results[0] if len(results) == 1 else tuple(results)
+
+    def _predict_grads(self, X):
+        """Gradients of the predictive mean and std with respect to each
+        query point, by autograd through :func:`gp.predict` (each point's
+        mean and std depend on that point alone, so one backward pass of
+        their sums gives every row)."""
+        Xq = self._tensor(X).requires_grad_(True)
+        with torch.enable_grad():
+            mean, std = gpc.predict(
+                self._spec, self._theta_diag(), self._post, self._post_data,
+                self._warp_tensor(Xq), return_std=True,
+            )
+            (mg,) = torch.autograd.grad(mean.sum(), Xq, retain_graph=True)
+            (sg,) = torch.autograd.grad(std.sum(), Xq)
+        return mg.cpu().numpy(), sg.cpu().numpy()
 
     @torch.no_grad()
-    def predict(self, X, return_std: bool = False, return_cov: bool = False):
-        """Predictive mean (and std or covariance) of the consensus GP;
-        with warping ``X`` (in [0, 1]) is warped by the consensus warp."""
-        self._check_fitted()
+    def predict(
+        self, X, return_std: bool = False, return_cov: bool = False,
+        return_mean_grad: bool = False, return_std_grad: bool = False,
+    ):
+        """Predictive mean (and std or covariance, and the gradients of
+        mean and std in each query point) of the consensus GP; with warping
+        ``X`` (in [0, 1]) is warped by the consensus warp. Before ``fit``,
+        the predictions of the GP prior."""
         X = np.atleast_2d(X)
+        if not self._is_fitted():
+            return self._prior_predict(
+                X, return_std, return_cov, return_mean_grad, return_std_grad
+            )
         if self.warp_inputs:
             validate_zeroone(X)
         out = gpc.predict(
@@ -739,8 +1274,16 @@ class BayesGPR:
             return_cov=return_cov,
         )
         if return_std or return_cov:
-            return out[0].cpu().numpy(), out[1].cpu().numpy()
-        return out.cpu().numpy()
+            results = [out[0].cpu().numpy(), out[1].cpu().numpy()]
+        else:
+            results = [out.cpu().numpy()]
+        if return_mean_grad or return_std_grad:
+            mg, sg = self._predict_grads(X)
+            if return_mean_grad:
+                results.append(mg)
+            if return_std_grad:
+                results.append(sg)
+        return results[0] if len(results) == 1 else tuple(results)
 
     def _seed(self, random_state):
         if isinstance(random_state, np.random.RandomState):
@@ -765,10 +1308,15 @@ class BayesGPR:
     ):
         """Function draws (n_points, n_samples): from the consensus GP with
         ``sample_mean=True``, else one draw per random chain row (each
-        with its own warp, when warping)."""
-        self._check_fitted()
+        with its own warp, when warping). Before ``fit``, joint draws from
+        the GP prior."""
         seed = self._seed(random_state)
         Xq = self._tensor(np.atleast_2d(X))
+        if not self._is_fitted():
+            kernel, theta = self._prior_kernel_theta()
+            cov = kernel.eval(theta, Xq)
+            z = self._normals(seed, (Xq.shape[0], n_samples))
+            return gpc.eigh_draws(torch.zeros_like(cov[:, 0]), cov, z).cpu().numpy()
         widx = self.white_index_
         if sample_mean:
             theta = self._tensor(self._theta)

@@ -1,13 +1,16 @@
 """Covariance-kernel specs with sklearn-compatible log-space ``theta``.
 
-PyTorch counterpart of :mod:`bask_tpu.ops.kernels`, limited to the family
-the fused gram kernel accepts (``gram.match_fusable``): ``ConstantKernel``,
-``RBF``, ``Matern`` with nu in {0.5, 1.5, 2.5, inf}, ``WhiteKernel``,
-``Sum`` and ``Product``.
+PyTorch counterpart of :mod:`bask_tpu.ops.kernels`: ``ConstantKernel``,
+``WhiteKernel``, ``RBF``, ``Matern`` (any nu > 0), ``Sum``, ``Product``,
+``Exponentiation`` and ``CompoundKernel``. The fused gram kernel
+(``gram.match_fusable``) takes ``Constant * (Matern|RBF) [+ White]`` with
+nu in {0.5, 1.5, 2.5, inf}; every other spec builds its grams here, in
+plain torch, and its factorizations still run the blocked form.
 
 Specs are immutable; all hyperparameters live in a flat log-space vector
 ``theta`` in sklearn order (depth-first: Sum/Product visit ``k1`` then
-``k2``; fixed leaves contribute nothing). Evaluation is batched:
+``k2``, Exponentiation visits its child, CompoundKernel its members in
+order; fixed leaves contribute nothing). Evaluation is batched:
 ``theta`` may carry leading batch dimensions ``(..., n_theta)`` and ``X``
 ``(..., n, d)``; the result is ``(..., n, m)``. That is what the JAX
 package gets from ``vmap`` over walkers or hyperposterior draws.
@@ -30,6 +33,8 @@ __all__ = [
     "Matern",
     "Sum",
     "Product",
+    "Exponentiation",
+    "CompoundKernel",
     "sqdist",
     "iter_leaves",
     "white_theta_index",
@@ -37,7 +42,9 @@ __all__ = [
 
 Bounds = Union[str, Tuple[float, float]]
 
-_FUSED_NU = (0.5, 1.5, 2.5, math.inf)
+# z = sqrt(2 nu) r below this is the r -> 0 limit of the general-nu
+# Matern (k = 1, dk/dr = 0): z^nu underflows while K_nu(z) overflows
+_MATERN_Z_TINY = 1e-8
 
 
 def sqdist(X, Y, inv_ls):
@@ -83,6 +90,9 @@ class Kernel:
 
     def __rmul__(self, other):
         return Product(_as_kernel(other), self)
+
+    def __pow__(self, exponent):
+        return Exponentiation(self, float(exponent))
 
     @property
     def n_theta(self) -> int:
@@ -290,19 +300,11 @@ class RBF(Kernel):
 
 @dataclass(frozen=True)
 class Matern(RBF):
-    """Matern kernel with nu in {0.5, 1.5, 2.5, inf} (inf = RBF).
-
-    General nu (the modified-Bessel form of the JAX package) is not
-    ported yet."""
+    """Matern kernel, any nu > 0 (inf = RBF). nu in {0.5, 1.5, 2.5} have
+    closed forms, which the fused gram kernel also computes; every other
+    nu is the modified-Bessel form (:func:`matern_general`)."""
 
     nu: float = 1.5
-
-    def __post_init__(self):
-        if self.nu not in _FUSED_NU:
-            raise NotImplementedError(
-                f"Matern(nu={self.nu}): only nu in {{0.5, 1.5, 2.5, inf}} "
-                "is supported by the PyTorch port"
-            )
 
     def _eval(self, theta, X, Y):
         return matern_from_d2(self._d2(theta, X, Y), self.nu)
@@ -319,8 +321,62 @@ def matern_from_d2(d2, nu):
     if nu == 1.5:
         s = math.sqrt(3.0) * r
         return (1.0 + s) * torch.exp(-s)
-    s = math.sqrt(5.0) * r
-    return (1.0 + s + s * s / 3.0) * torch.exp(-s)
+    if nu == 2.5:
+        s = math.sqrt(5.0) * r
+        return (1.0 + s + s * s / 3.0) * torch.exp(-s)
+    return matern_general(r, float(nu))
+
+
+def _matern_log_terms(r, nu: float, order: float):
+    """(z, log of coef z^nu kve(order, z) e^-z) in float64, z = sqrt(2 nu) r,
+    coef = 2^(1-nu) / Gamma(nu): the whole value in log space, so z^nu
+    underflow cannot meet K_nu overflow as 0 * inf."""
+    from .bessel import log_kve
+
+    z = math.sqrt(2.0 * nu) * r.to(torch.float64)
+    logval = (
+        (1.0 - nu) * math.log(2.0) - math.lgamma(nu) + nu * torch.log(z)
+        + log_kve(order, z) - z
+    )
+    return z, logval
+
+
+def _matern_general_value(r, nu: float):
+    z, logval = _matern_log_terms(r, nu, nu)
+    ok = (z > _MATERN_Z_TINY) & torch.isfinite(logval)
+    return torch.where(ok, torch.exp(logval), 1.0).to(r.dtype)
+
+
+def _matern_general_dr(r, nu: float):
+    """dk/dr = -coef sqrt(2 nu) z^nu K_{nu-1}(z); K is even in its order,
+    so |nu - 1| covers nu < 1. 0 in the r -> 0 limit."""
+    z, logmag = _matern_log_terms(r, nu, abs(nu - 1.0))
+    ok = (z > _MATERN_Z_TINY) & torch.isfinite(logmag)
+    return torch.where(ok, -torch.exp(logmag) * math.sqrt(2.0 * nu), 0.0).to(r.dtype)
+
+
+class _MaternGeneral(torch.autograd.Function):
+    """k_nu(r) whose backward is the closed-form dk/dr (the JAX package's
+    ``_matern_general_jvp``). The backward is plain torch on the saved r,
+    so a second derivative (the Laplace init's Hessian) differentiates
+    through it, as JAX differentiates its JVP rule."""
+
+    @staticmethod
+    def forward(ctx, r, nu):
+        ctx.nu = nu
+        ctx.save_for_backward(r)
+        return _matern_general_value(r, nu)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (r,) = ctx.saved_tensors
+        return grad * _matern_general_dr(r, ctx.nu), None
+
+
+def matern_general(r, nu: float):
+    """General-nu Matern of the scaled distance ``r`` (any nu > 0), in
+    float64 inside and cast back to ``r``'s dtype."""
+    return _MaternGeneral.apply(r, float(nu))
 
 
 @dataclass(frozen=True)
@@ -374,9 +430,95 @@ class Product(Sum):
         return Product(k1, k2), rest
 
 
+@dataclass(frozen=True)
+class CompoundKernel(Kernel):
+    """Container of independent kernels with concatenated theta (sklearn's
+    ``CompoundKernel``): a parameter-space container, not a covariance for
+    GP fitting; ``eval`` and ``diag`` stack the members' results on a last
+    axis, (..., n, m, K) and (..., n, K)."""
+
+    kernels: Tuple[Kernel, ...] = ()
+
+    def __post_init__(self):
+        object.__setattr__(self, "kernels", tuple(self.kernels))
+
+    @property
+    def n_theta(self):
+        return sum(k.n_theta for k in self.kernels)
+
+    @property
+    def theta0(self):
+        if not self.kernels:
+            return np.zeros(0)
+        return np.concatenate([k.theta0 for k in self.kernels])
+
+    @property
+    def bounds(self):
+        if not self.kernels:
+            return np.zeros((0, 2))
+        return np.concatenate([k.bounds for k in self.kernels], axis=0)
+
+    def _split(self, theta):
+        out, lo = [], 0
+        for k in self.kernels:
+            out.append(theta[..., lo : lo + k.n_theta])
+            lo += k.n_theta
+        return out
+
+    def eval(self, theta, X, Y=None):
+        parts = self._split(theta)
+        return torch.stack([k.eval(t, X, Y) for k, t in zip(self.kernels, parts)], dim=-1)
+
+    def diag(self, theta, X):
+        parts = self._split(theta)
+        return torch.stack([k.diag(t, X) for k, t in zip(self.kernels, parts)], dim=-1)
+
+    def _with_theta(self, theta):
+        new, rest = [], theta
+        for k in self.kernels:
+            nk, rest = k._with_theta(rest)
+            new.append(nk)
+        return CompoundKernel(tuple(new)), rest
+
+
+@dataclass(frozen=True)
+class Exponentiation(Kernel):
+    """``kernel ** exponent``, elementwise; the child's theta."""
+
+    kernel: Kernel = field(default=None)
+    exponent: float = 1.0
+
+    @property
+    def n_theta(self):
+        return self.kernel.n_theta
+
+    @property
+    def theta0(self):
+        return self.kernel.theta0
+
+    @property
+    def bounds(self):
+        return self.kernel.bounds
+
+    def _eval(self, theta, X, Y):
+        return self.kernel._eval(theta, X, Y) ** self.exponent
+
+    def _diag(self, theta, X):
+        return self.kernel._diag(theta, X) ** self.exponent
+
+    def _with_theta(self, theta):
+        k, rest = self.kernel._with_theta(theta)
+        return Exponentiation(k, self.exponent), rest
+
+
 def iter_leaves(kernel):
     """Depth-first leaf iterator in sklearn theta order."""
-    if isinstance(kernel, Sum):  # Product subclasses Sum
+    if isinstance(kernel, Exponentiation):
+        yield from iter_leaves(kernel.kernel)
+    elif isinstance(kernel, CompoundKernel):
+        for k in kernel.kernels:
+            yield from iter_leaves(k)
+    elif isinstance(kernel, Sum):  # Product subclasses Sum
         yield from iter_leaves(kernel.k1)
         yield from iter_leaves(kernel.k2)
     else:

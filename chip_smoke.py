@@ -48,10 +48,25 @@ Phases, each printing one result line:
    PVRS polish and one with the EI polish (each polished value no lower
    than its start under the same draws), the chain's diagnostics, the
    three stopping diagnostics, and the legacy dispatcher bit-equal to
-   the fused pass.
+   the fused pass;
+10. the fit options at the north-star shape (n = 500, d = 15, 100
+   walkers, float32): (a) a cold fit with the Laplace chain init, the
+   MAP warm start with 2 restarts and frozen SciPy priors (lifted to
+   torch, no host adapter); (b) the device L-BFGS warm start against
+   SciPy's L-BFGS-B from the same 3 starts, then a fit with it; (c) a
+   fit warm-started on a 128-point subsample; (d) fits with
+   ``Matern(nu=1.7)`` and with ``Exponentiation`` (plain grams: K1 not
+   launched, K3 bases); (e) on phase 6's model, prediction gradients in
+   float64 against central differences; (f) ``save_optimizer`` /
+   ``load_optimizer`` of phase 6's Optimizer on the card; (g) short
+   chains with opaque priors (a NumPy and a SciPy lambda) through the
+   host adapter, timed beside the same chain with the lifted prior. Each
+   fit's consensus LML is held to float64 at phase 6's bound or, where
+   cond(K) makes float32 miss that, at twice the error of the float32
+   ``cholesky_ex`` path at the same theta.
 
-The ``launches`` of the kernel table sum phases 7-9, each counted from 0
-just before the phase drives the Optimizer and read just after it.
+The ``launches`` of the kernel table sum phases 7-10, each counted from 0
+just before the phase drives its path and read just after it.
 
 No failure is caught: a phase that fails ends the run with a non-zero
 exit. Without a CUDA card it exits non-zero at once. The last three
@@ -654,6 +669,24 @@ def _consensus_lml_f64(gp):
     ))
 
 
+def _lml_plain32_and_cond(gp):
+    """(the consensus LML by the float32 plain path on the card: the spec's
+    gram, ``cholesky_ex`` and a triangular solve, no K1 or K3; cond(K) of
+    the unpadded gram in float64)."""
+    import torch
+
+    from bask_tpu_torch.models import bayesgpr as tbg
+    from bask_tpu_torch.ops.linalg import masked_gram
+
+    d = gp._post_data
+    theta = gp._tensor(gp.theta)
+    plain32 = -float(tbg._neg_lml_plain(gp._spec, theta, d))
+    K = masked_gram(gp._spec, theta.double(), d.X.double(), d.alpha_diag.double(), d.mask)
+    n = int(d.mask.sum())
+    ev = torch.linalg.eigvalsh(K[:n, :n])
+    return plain32, float(ev[-1] / ev[0])
+
+
 def phase_optimizer(dev):
     """The Optimizer's main path on the card (K1 gram, K3 bases)."""
     import torch
@@ -845,8 +878,25 @@ def _factor_ab(dev, Kp, yb):
     turns = {"blocked": [], "cholesky_ex": []}
     for name in ("blocked", "cholesky_ex", "cholesky_ex", "blocked"):
         turns[name].append(cuda_ms(blocked if name == "blocked" else library, reps=5))
+    blocked_ops, ops = profiled(blocked, reps=5)
+    # one K3 launch factors and inverts B 128-wide diagonal blocks: read
+    # their lower triangles, write L and L^-1 (phase 4's count); its plain
+    # version and the PyTorch pair on the first diagonal block
+    B, m = Kp.shape[0], fc._BASE
+    k3_bound, k3_by = bound_ms(4 * B * (m * (m + 1) // 2 + 2 * m * m), B * 2 * m**3 / 3)
+    A = Kp[:, :m, :m].contiguous()
+    eye = torch.eye(m, dtype=A.dtype, device=A.device).expand(B, m, m)
+
+    def library_base():
+        L, _ = torch.linalg.cholesky_ex(A)
+        return L, torch.linalg.solve_triangular(L, eye, upper=False)
+
     out = {"shape": list(Kp.shape), "ms_turns": turns, "k3_launches": k3,
-           "device_ops": {"blocked": profiled(blocked)[0], "cholesky_ex": profiled(library)[0]},
+           "device_ops": {"blocked": blocked_ops, "cholesky_ex": profiled(library)[0]},
+           "k3_launch": {"shape": [B, m, m], "alone_us": kernel_us(ops, "chol_inv_kernel"),
+                         "bound_us": 1e3 * k3_bound, "bound_by": k3_by,
+                         "plain_ms": cuda_ms(lambda: chol_base.chol_inv_plain(A), reps=3),
+                         "library_ms": cuda_ms(library_base, reps=5)},
            "rel_diff_vs_cholesky_ex": agree}
     if not agree <= 1e-4:
         raise AssertionError(f"the (·, 1024, 1024) factorizations disagree: {out}")
@@ -1025,6 +1075,7 @@ def phase_batch_ask(dev):
         "K3 8 per factorization in each ask": all(
             per_step[f"ask {i}"]["K3"] == 8 * per_step[f"ask {i}"]["K1"] for i in (1, 2)),
         "factorization: 8 K3 launches": factor["k3_launches"] == 8,
+        "K3 launch timed under the profiler": factor["k3_launch"]["alone_us"] is not None,
         "4 draws agree with float64": draws_ok,
         "the TF32 control misses the draws' limit": control_fails,
     }
@@ -1033,7 +1084,7 @@ def phase_batch_ask(dev):
         raise AssertionError(f"batch-ask phase failed: {failed}")
     k3_ab = {"shape": factor["shape"], "blocked_ms": float(np.median(factor["ms_turns"]["blocked"])),
              "library_ms": float(np.median(factor["ms_turns"]["cholesky_ex"])),
-             "launches_per_factorization": factor["k3_launches"]}
+             "launches_per_factorization": factor["k3_launches"], "per_launch": factor["k3_launch"]}
     return launches, k1, k3_ab
 
 
@@ -1155,6 +1206,215 @@ def phase_stopping_polish(opt, dev):
     return launches
 
 
+def phase_fit_options(opt, dev):
+    """Phase 10: the fit options at the north-star shape, then checks on
+    phase 6's Optimizer (``opt``). Returns the launch counts of (a)-(d)
+    and (g), each fit counted from 0."""
+    import tempfile
+    import warnings
+
+    import scipy.stats as sps
+    import torch
+
+    from bask_tpu_torch import BayesGPR
+    from bask_tpu_torch.models import bayesgpr as tbg
+    from bask_tpu_torch.ops import kernels as bk
+    from bask_tpu_torch.utils import serialization
+
+    X, y = bench_dataset()
+    kernel = bench_kernel(bk)
+    # frozen SciPy priors on the log parameters: amplitude, 15 lengthscales,
+    # noise (the port lifts these to torch; no host adapter)
+    lifted = ([sps.norm(0.0, 1.0).logpdf] + [sps.norm(math.log(0.3), 1.0).logpdf] * N_DIM
+              + [sps.norm(math.log(0.05), 2.0).logpdf])
+    fit_kw = dict(n_desired_samples=10 * N_WALKERS, n_walkers_per_thread=N_WALKERS, n_burnin=10,
+                  warn_rhat=None)
+    by_fit, seconds, out = {}, {}, {}
+
+    def run_fit(name, gp_kernel, priors=None, steps=fit_kw, **gp_kw):
+        gp = BayesGPR(gp_kernel, random_state=0, device=dev, **gp_kw)
+        ml2_s = []
+        warm_start = gp._ml2_optimize
+
+        def timed_warm_start():
+            t0 = time.perf_counter()
+            theta = warm_start()
+            ml2_s.append(time.perf_counter() - t0)
+            return theta
+
+        gp._ml2_optimize = timed_warm_start
+        before = _counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            gp.fit(X, y, priors=priors, **steps)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        by_fit[name] = _since(before)
+        lml, lml64 = gp.log_marginal_likelihood_value_, _uncounted(lambda: _consensus_lml_f64(gp))
+        plain32, cond = _uncounted(lambda: _lml_plain32_and_cond(gp))
+        out[name] = {"fit_s": seconds[name], "ml2_s": ml2_s[0], "launches": by_fit[name],
+                     "consensus_lml": lml, "consensus_lml_f64": lml64,
+                     "plain_float32_lml": plain32, "cond_K": cond,
+                     "warnings": [str(w.message)[:80] for w in caught]}
+        return gp, caught
+
+    # (a) Laplace init + MAP warm start with restarts + lifted SciPy priors
+    positions = {}
+    laplace = tbg.BayesGPR._laplace_positions
+
+    def recorded(self, *args):
+        t0 = time.perf_counter()
+        positions["pos"] = laplace(self, *args)
+        positions["seconds"] = time.perf_counter() - t0
+        return positions["pos"]
+
+    tbg.BayesGPR._laplace_positions = recorded
+    try:
+        gp_a, _ = run_fit("a laplace+map+restarts", kernel, lifted, chain_init="laplace",
+                          ml2_objective="map", n_restarts_optimizer=2)
+    finally:
+        tbg.BayesGPR._laplace_positions = laplace
+    pos = positions.get("pos")
+    spread = None if pos is None else float(pos.std(0).min())
+    out["a laplace+map+restarts"]["walker_spread_min"] = spread
+    out["a laplace+map+restarts"]["laplace_s"] = positions.get("seconds")
+
+    # (b) the device L-BFGS against SciPy's L-BFGS-B from the same starts
+    ml2 = {}
+    for opt_name in ("lbfgs-device", "lbfgs"):
+        gp = BayesGPR(kernel, random_state=0, device=dev, optimizer=opt_name,
+                      n_restarts_optimizer=2)
+        gp._spec = kernel
+        gp._set_data(X, y, None)
+        t0 = time.perf_counter()
+        theta = gp._ml2_optimize()
+        torch.cuda.synchronize()
+        d64 = gp._data._replace(X=gp._data.X.double(), y=gp._data.y.double(),
+                                alpha_diag=gp._data.alpha_diag.double())
+        nll = float(tbg._neg_lml_plain(kernel, torch.as_tensor(theta, device=dev), d64))
+        ml2[opt_name] = {"seconds": time.perf_counter() - t0, "neg_lml_f64": nll}
+    ml2_margin = 1e-3 * abs(ml2["lbfgs"]["neg_lml_f64"])
+    gp_b, _ = run_fit("b lbfgs-device", kernel, lifted, chain_init="laplace",
+                      optimizer="lbfgs-device", n_restarts_optimizer=2)
+    out["b lbfgs-device"]["ml2"] = ml2
+
+    # (c) the warm start on a 128-point subsample
+    run_fit("c ml2_subsample=128", kernel, ml2_subsample=128)
+
+    # (d) kernels outside the fused family: plain grams, K3 bases
+    matern17 = bk.ConstantKernel(1.0, (0.1, 2.0)) * bk.Matern(
+        (0.3,) * N_DIM, (0.05, 2.0), nu=1.7) + bk.WhiteKernel(0.05, (1e-5, 1e5))
+    powered = bk.ConstantKernel(1.0, (0.1, 2.0)) * bk.Exponentiation(
+        bk.Matern((0.3,) * N_DIM, (0.05, 2.0), nu=2.5), 2.0) + bk.WhiteKernel(0.05, (1e-5, 1e5))
+    # 3 chain steps: each general-nu half-step evaluates K_nu in float64
+    # over the (50, 512, 512) distances
+    short = dict(fit_kw, n_desired_samples=N_WALKERS, n_burnin=2)
+    run_fit("d Matern(nu=1.7)", matern17, steps=short)
+    run_fit("d Exponentiation", powered, steps=short)
+
+    # (g) short warm chains, 3 steps each: opaque priors through the host
+    # adapter (a NumPy lambda, whose own cost is ~1 us a call, and a SciPy
+    # lambda that builds a frozen distribution at each call) beside the
+    # lifted prior
+    numpy_prior = [lambda x: -0.125 * float(np.square(x))] * kernel.n_theta
+    scipy_prior = [lambda x: sps.norm(0.0, 2.0).logpdf(x)] * kernel.n_theta
+    chain = {}
+    before = _counts()
+    for name, priors in (("lifted", lifted), ("host adapter, NumPy lambda", numpy_prior),
+                         ("host adapter, SciPy lambda", scipy_prior), ("lifted again", lifted)):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gp_a.sample(n_desired_samples=3 * N_WALKERS, priors=priors, warn_rhat=None)
+            torch.cuda.synchronize()
+        chain[name] = {"ms_per_step": 1e3 * (time.perf_counter() - t0) / 3,
+                       "consensus_lml": gp_a.log_marginal_likelihood_value_}
+    by_fit["g chains"] = _since(before)
+    host_types = {type(p).__name__ for p in gp_a._resolve_priors(numpy_prior + scipy_prior)}
+
+    # (e) prediction gradients of phase 6's model: float32 on the card, and
+    # a float64 copy (saved and loaded) against central differences
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/gp.npz"
+        serialization.save_gpr(opt.gp, path)
+        gp64 = serialization.load_gpr(path, device=dev, dtype=torch.float64)
+        grid = np.random.RandomState(17).uniform(0.1, 0.9, size=(64, N_DIM))
+        _, _, mg, sg = gp64.predict(grid, return_std=True, return_mean_grad=True,
+                                    return_std_grad=True)
+        _, _, mg32, sg32 = opt.gp.predict(grid, return_std=True, return_mean_grad=True,
+                                          return_std_grad=True)
+        h, fd_err = 1e-5, {"mean": 0.0, "std": 0.0}
+        for i in range(N_DIM):
+            e = np.zeros(N_DIM)
+            e[i] = h
+            mp, sp_ = gp64.predict(grid + e, return_std=True)
+            mm, sm = gp64.predict(grid - e, return_std=True)
+            fd_err["mean"] = max(fd_err["mean"], float(np.abs(mg[:, i] - (mp - mm) / (2 * h)).max()))
+            fd_err["std"] = max(fd_err["std"], float(np.abs(sg[:, i] - (sp_ - sm) / (2 * h)).max()))
+        grad_scale = {"mean": float(np.abs(mg).max()), "std": float(np.abs(sg).max())}
+        f32_err = {"mean": float(np.abs(mg32 - mg).max()), "std": float(np.abs(sg32 - sg).max())}
+
+        # (f) the Optimizer through save_optimizer / load_optimizer on the card
+        opath = f"{tmp}/opt.npz"
+        t0 = time.perf_counter()
+        serialization.save_optimizer(opt, opath)
+        loaded = serialization.load_optimizer(opath, device=dev)
+        torch.cuda.synchronize()
+        roundtrip_s = time.perf_counter() - t0
+    same_ask = list(loaded.ask()) == list(opt.ask())
+    pred_err = float(np.abs(loaded.gp.predict(grid) - opt.gp.predict(grid)).max())
+    pred_scale = float(np.abs(opt.gp.predict(grid)).max())
+    # The float32 LML's error grows with cond(K), so a well-fitted model
+    # (little noise) can miss phase 6's 1e-5 of |LML| through conditioning
+    # alone; it then still has to be within twice the error of the float32
+    # cholesky_ex path (no K1, no K3) at the same theta.
+    for v in out.values():
+        v["lml_err"] = abs(v["consensus_lml"] - v["consensus_lml_f64"])
+        v["lml_limit"] = max(1e-5 * max(1.0, abs(v["consensus_lml_f64"])),
+                             2.0 * abs(v["plain_float32_lml"] - v["consensus_lml_f64"]))
+    report(
+        "phase 10 fit options", fits=out, ml2_device_vs_host=ml2, ml2_margin=ml2_margin,
+        host_adapter_chain=chain, host_prior_types=sorted(host_types),
+        predict_grads={"fd_max_abs_err": fd_err, "grad_scale": grad_scale,
+                       "float32_vs_float64_max_abs": f32_err, "h": h, "points": len(grid)},
+        checkpoint={"seconds": roundtrip_s, "same_next_ask": same_ask,
+                    "predict_max_abs_diff": pred_err, "predict_scale": pred_scale},
+        launches=by_fit,
+    )
+    fusable = ("a laplace+map+restarts", "b lbfgs-device", "c ml2_subsample=128")
+    general = ("d Matern(nu=1.7)", "d Exponentiation")
+    checks = {
+        "(a) the SciPy priors were lifted (no host adapter)":
+            not any("adapter" in w for w in out["a laplace+map+restarts"]["warnings"]),
+        "(a) Laplace positions drawn": pos is not None,
+        "(a) walker spread finite, >= 0.8 x the Laplace floor":
+            spread is not None and math.isfinite(spread) and spread >= 0.8 * tbg._LAPLACE_STD_MIN,
+        "(b) device L-BFGS no worse than L-BFGS-B by 1e-3 relative":
+            ml2["lbfgs-device"]["neg_lml_f64"] <= ml2["lbfgs"]["neg_lml_f64"] + ml2_margin,
+        "K1 and K3 launched in each fusable fit":
+            all(by_fit[k]["K1"] >= 1 and by_fit[k]["K3"] >= 1 for k in fusable),
+        "K1 not launched, K3 launched in the general fits":
+            all(by_fit[k]["K1"] == 0 and by_fit[k]["K3"] >= 1 for k in general),
+        "consensus LMLs match float64 (phase 6's bound, or twice cuSOLVER's float32 error)": all(
+            math.isfinite(v["consensus_lml"]) and v["lml_err"] <= v["lml_limit"]
+            for v in out.values()),
+        "(e) float64 gradients match central differences (1e-5 of scale)": all(
+            fd_err[k] <= 1e-5 * max(1.0, grad_scale[k]) for k in fd_err),
+        "(f) loaded optimizer: same next ask": same_ask,
+        "(f) loaded optimizer: same predictions (1e-5 of scale)":
+            pred_err <= 1e-5 * max(1.0, pred_scale),
+        "(g) host adapter in use": host_types == {"_HostPrior"},
+        "(g) chains finite": all(math.isfinite(v["consensus_lml"]) for v in chain.values()),
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 10 failed: {failed}")
+    total = {k: sum(c[k] for c in by_fit.values()) for k in _kernel_counters()}
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1183,6 +1443,7 @@ def main() -> int:
     by_path = {"phase 7 warped tell": timed("7", phase_warped_optimizer, dev)}
     by_path["phase 8 batch ask"], k1_batch, k3_batch = timed("8", phase_batch_ask, dev)
     by_path["phase 9 polish"] = timed("9", phase_stopping_polish, opt, dev)
+    by_path["phase 10 fit options"] = timed("10", phase_fit_options, opt, dev)
     report("phase seconds", **seconds, total=sum(seconds.values()))
 
     def launches(key):

@@ -6,7 +6,10 @@ operation per call, the wrappers' refusals, and the batched LML through
 the kernels (with K2, bit-equal to the K1 run), and the batch-ask shapes:
 K1 at (256, 1024, 1024), the blocked factorization of that size (8 K3
 launches) against ``cholesky_ex`` in float64, and one pathwise top-k
-against its float64 recomputation.
+against its float64 recomputation; and the paths of the fit options:
+general-nu Matern and Exponentiation LMLs (plain grams, K3 bases, no
+K1), lifted and host priors on CUDA tensors, the Laplace/MAP and device
+L-BFGS fits, prediction gradients and pickling on the card.
 
 Every test here needs a CUDA card and skips without one. The file
 imports no JAX, so it also runs where only the port is installed:
@@ -369,3 +372,115 @@ def test_pathwise_topk_against_float64(dev):
     gap = ref.gather(1, idx[:, :1])[:, 0] - ref.min(dim=1).values
     assert bool((gap <= tol).all())
 
+
+@pytest.mark.parametrize("name", ["matern-1.7", "exponentiation"])
+def test_general_kernel_lml_on_the_card(dev, name):
+    """Non-fusable kernels: the grams are plain torch (no K1 launch), the
+    factorization blocked with K3 bases; the LMLs within 1e-5 relative of
+    the float64 CPU run."""
+    kernel = {
+        "matern-1.7": bk.ConstantKernel(1.0, (0.1, 2.0)) * bk.Matern((0.3,) * 15, (0.05, 2.0), nu=1.7)
+        + bk.WhiteKernel(0.05, (1e-5, 1e5)),
+        "exponentiation": bk.ConstantKernel(1.0, (0.1, 2.0))
+        * bk.Exponentiation(bk.Matern((0.3,) * 15, (0.05, 2.0), nu=2.5), 2.0)
+        + bk.WhiteKernel(0.05, (1e-5, 1e5)),
+    }[name]
+    rng = np.random.RandomState(9)
+    n, n_pad, d, W = 200, 256, 15, 10
+    X = np.full((n_pad, d), 0.5)
+    X[:n] = rng.uniform(size=(n, d))
+    y = np.zeros(n_pad)
+    y[:n] = rng.randn(n)
+    thetas = kernel.theta0[None] + 0.1 * rng.randn(W, kernel.n_theta)
+    mask = np.arange(n_pad) < n
+
+    def run(device, dtype):
+        t = [torch.tensor(a, dtype=dtype, device=device) for a in (thetas, X, y, np.full(n_pad, 1e-6))]
+        return linalg.batched_lml(kernel, *t, torch.tensor(mask, device=device), n_real=n)
+
+    assert gram.fused_spec_for(kernel, torch.zeros(n_pad, d, device=dev)) is None
+    k1, k3 = gram.fused_masked_gram_batch.launches, chol_base.chol_inv_base.launches
+    lml = run(dev, torch.float32).double().cpu().numpy()
+    assert gram.fused_masked_gram_batch.launches == k1
+    assert chol_base.chol_inv_base.launches > k3
+    assert np.isfinite(lml).all()
+    np.testing.assert_allclose(lml, run("cpu", torch.float64).numpy(), rtol=1e-5)
+
+
+def _small_fit_data():
+    rng = np.random.RandomState(10)
+    X = rng.uniform(size=(60, 3))
+    return X, ((X - 0.4) ** 2).sum(1) + 0.02 * rng.randn(60)
+
+
+def test_priors_on_cuda_tensors(dev):
+    """A frozen SciPy logpdf is lifted and runs on the card; an opaque
+    NumPy prior runs through the host adapter and comes back there."""
+    import scipy.stats as sps
+
+    from bask_tpu_torch import BayesGPR
+    from bask_tpu_torch.models import bayesgpr as tbg
+
+    gp = BayesGPR(bk.ConstantKernel(1.0, (0.1, 2.0)) * bk.Matern((0.3,) * 3, (0.05, 2.0), nu=2.5),
+                  random_state=0, device=dev)
+    X, y = _small_fit_data()
+    gp.fit(X, y, n_desired_samples=32, n_walkers_per_thread=16, n_burnin=2, warn_rhat=None,
+           priors=[sps.halfnorm(scale=2).logpdf] * 5)
+    theta = torch.rand(7, device=dev)
+    lifted = gp._resolve_priors([sps.norm(0, 2).logpdf] * 5)[0]
+    assert lifted(theta).device == theta.device
+    with pytest.warns(UserWarning, match="adapter"):
+        host = gp._resolve_priors([lambda x: sps.norm(0, 2).logpdf(x)] * 5)[0]
+    assert isinstance(host, tbg._HostPrior)
+    np.testing.assert_allclose(host(theta).cpu().numpy(), lifted(theta).cpu().numpy(), rtol=1e-6)
+
+
+def test_fit_options_on_the_card(dev):
+    """Laplace init + MAP warm start with restarts, and the device L-BFGS,
+    fit on the card; the device L-BFGS's negative LML within 1e-3
+    relative of the host L-BFGS-B's (float32)."""
+    from bask_tpu_torch import BayesGPR
+    from bask_tpu_torch.models import bayesgpr as tbg
+
+    X, y = _small_fit_data()
+    kernel = bk.ConstantKernel(1.0, (0.1, 2.0)) * bk.Matern((0.3,) * 3, (0.05, 2.0), nu=2.5)
+    kw = dict(n_desired_samples=32, n_walkers_per_thread=16, n_burnin=2, warn_rhat=None)
+    lap = BayesGPR(kernel, random_state=0, device=dev, chain_init="laplace", ml2_objective="map",
+                   n_restarts_optimizer=2).fit(X, y, **kw)
+    assert np.isfinite(lap.theta).all() and np.isfinite(lap.log_marginal_likelihood_value_)
+    thetas = {}
+    for opt in ("lbfgs-device", "lbfgs"):
+        gp = BayesGPR(kernel, random_state=0, device=dev, optimizer=opt, n_restarts_optimizer=2)
+        gp._spec = kernel + bk.WhiteKernel(1.0, (1e-5, 1e5))
+        gp._set_data(X, y, None)
+        thetas[opt] = gp._ml2_optimize()
+    f = {k: float(tbg._neg_lml_plain(gp._spec, gp._tensor(v), gp._data)) for k, v in thetas.items()}
+    assert f["lbfgs-device"] <= f["lbfgs"] + 1e-3 * abs(f["lbfgs"])
+
+
+def test_predict_grads_and_pickle_on_the_card(dev):
+    """Prediction gradients of a float64 model on the card against central
+    differences; a pickled card model loads on the card and predicts the
+    same."""
+    import pickle
+
+    from bask_tpu_torch import BayesGPR
+
+    X, y = _small_fit_data()
+    kernel = bk.ConstantKernel(1.0, (0.1, 2.0)) * bk.Matern((0.3,) * 3, (0.05, 2.0), nu=1.7)
+    gp = BayesGPR(kernel, random_state=0, device=dev, dtype=torch.float64).fit(
+        X, y, n_desired_samples=32, n_walkers_per_thread=16, n_burnin=2, warn_rhat=None
+    )
+    grid = np.random.RandomState(11).uniform(0.1, 0.9, size=(7, 3))
+    _, _, mg, sg = gp.predict(grid, return_std=True, return_mean_grad=True, return_std_grad=True)
+    h = 1e-6
+    for i in range(3):
+        e = np.zeros(3)
+        e[i] = h
+        mp, sp_ = gp.predict(grid + e, return_std=True)
+        mm, sm = gp.predict(grid - e, return_std=True)
+        np.testing.assert_allclose(mg[:, i], (mp - mm) / (2 * h), rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(sg[:, i], (sp_ - sm) / (2 * h), rtol=1e-5, atol=1e-7)
+    back = pickle.loads(pickle.dumps(gp))
+    assert back._post.L.is_cuda
+    np.testing.assert_array_equal(back.predict(grid), gp.predict(grid))

@@ -1,6 +1,7 @@
 """bask_tpu_torch kernel specs against bask_tpu.ops.kernels at float64:
 theta layout, full and cross grams, diagonals, batched theta, and the
-White-summand index."""
+White-summand index; general-nu Matern, Exponentiation and
+CompoundKernel among them, which the fused gram kernel does not take."""
 
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from bask_tpu.ops import kernels as jk  # noqa: E402
 from bask_tpu_torch import convert  # noqa: E402
+from bask_tpu_torch.ops import gram  # noqa: E402
 from bask_tpu_torch.ops import kernels as tk  # noqa: E402
 
 SPECS = [
@@ -27,6 +29,18 @@ SPECS = [
     jk.ConstantKernel(1.0, "fixed") * jk.RBF(0.6, (0.1, 2.0))
     + jk.WhiteKernel(0.1, "fixed"),
 ]
+# kernels outside the fused family (grams in plain torch)
+GENERAL = [
+    jk.Matern((0.5, 0.3, 0.7), (0.1, 1.0), nu=1.7),
+    jk.ConstantKernel(1.5, (0.1, 2.0)) * jk.Matern(0.4, (0.1, 1.0), nu=0.7)
+    + jk.WhiteKernel(0.1, (1e-5, 1e5)),
+    jk.Exponentiation(jk.RBF(0.4, (0.1, 1.0)), 2.0),
+    jk.ConstantKernel(1.2, (0.1, 2.0)) * jk.Exponentiation(
+        jk.Matern((0.4, 0.6, 0.5), (0.1, 1.0), nu=2.5), 1.5
+    ) + jk.WhiteKernel(0.1, (1e-5, 1e5)),
+    jk.CompoundKernel((jk.RBF(0.4, (0.1, 1.0)), jk.Matern(0.5, (0.1, 1.0), nu=3.5))),
+]
+SPECS += GENERAL
 
 rng = np.random.RandomState(0)
 X = rng.uniform(size=(7, 3))
@@ -90,7 +104,43 @@ def test_batched_theta_is_per_theta_eval():
 
 
 def test_unported_kernels_raise():
+    """A kernel class the port does not have is refused by name."""
+
+    class DotProduct(jk.RBF):
+        pass
+
     with pytest.raises(NotImplementedError):
-        convert.kernel_spec(jk.Matern(1.0, (0.1, 1.0), nu=3.5))
+        convert.kernel_spec(DotProduct(1.0, (0.1, 1.0)))
     with pytest.raises(NotImplementedError):
-        convert.kernel_spec(jk.Exponentiation(jk.RBF(1.0, (0.1, 1.0)), 2.0))
+        convert.kernel_spec(jk.Exponentiation(DotProduct(1.0, (0.1, 1.0)), 2.0))
+
+
+@pytest.mark.parametrize("spec", GENERAL, ids=lambda k: type(k).__name__)
+def test_general_kernels_are_not_fusable(spec):
+    """Like ``pallas_gram.match_fusable``: None, so the grams are built by
+    the spec and K1 never sees these kernels."""
+    assert gram.match_fusable(convert.kernel_spec(spec)) is None
+
+
+def test_general_nu_batched_theta_and_pow():
+    """A (B, n_theta) batch of general-nu thetas is B evaluations, and
+    ``k ** e`` is Exponentiation, with the leaves and White index of JAX."""
+    spec = GENERAL[1]
+    ours = convert.kernel_spec(spec)
+    thetas = spec.theta0[None] + 0.1 * rng.randn(3, spec.n_theta)
+    batch = ours.eval(_t(thetas), _t(X)).numpy()
+    off = ~np.eye(len(X), dtype=bool)
+    for b in range(3):
+        want = np.asarray(spec.eval(jnp.asarray(thetas[b]), jnp.asarray(X)))
+        np.testing.assert_allclose(batch[b][off], want[off], rtol=1e-12, atol=1e-14)
+        # JAX's self-distance is a rounding residue (~1e-16), not 0 as the
+        # port's: k_0.7 moves by ~r^1.4 there
+        np.testing.assert_allclose(np.diag(batch[b]), np.diag(want), rtol=1e-9)
+    powered = tk.RBF(0.4, (0.1, 1.0)) ** 2
+    assert powered == tk.Exponentiation(tk.RBF(0.4, (0.1, 1.0)), 2.0)
+    for k in GENERAL:
+        ours = convert.kernel_spec(k)
+        assert [type(leaf).__name__ for leaf in tk.iter_leaves(ours)] == [
+            type(leaf).__name__ for leaf in jk.iter_leaves(k)
+        ]
+        assert tk.white_theta_index(ours) == jk.white_theta_index(k)
