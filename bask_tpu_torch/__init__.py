@@ -1,11 +1,13 @@
 """PyTorch + CUDA port of bask_tpu (fully-Bayesian Bayesian optimization).
 
 The JAX package ``bask_tpu`` is the reference; this package mirrors its
-module layout. Its hand-written CUDA kernels (``csrc/``: the gram kernels
-K1 and K2, the base Cholesky K3) build at first use on a CUDA tensor; on
-the CPU their plain PyTorch versions run. Entry points place their
-tensors on the CUDA card unless the caller names another device.
-``BayesSearchCV`` needs scikit-learn and is imported on first use.
+module layout and its top-level names, less the TPU-only
+``warmup_optimizer``, ``enable_aot_cache`` and ``disable_aot_cache``. Its
+hand-written CUDA kernels (``csrc/``: the gram kernels K1, K2 and K4, the
+base Cholesky K3) build at first use on a CUDA tensor; on the CPU their
+plain PyTorch versions run. Entry points place their tensors on the CUDA
+card unless the caller names another device. ``BayesSearchCV`` needs
+scikit-learn and is imported on first use.
 """
 
 from .acquisition import (
@@ -21,15 +23,24 @@ from .acquisition import (
     evaluate_acquisitions_fused,
 )
 from .models.bayesgpr import BayesGPR
-from .optimizer import Optimizer
-from .space import Categorical, Integer, Real, Space
+from .optimizer import ACQUISITION_FUNC, Optimizer
+from .space import Categorical, Integer, Real, Space, normalize_dimensions
+from .utils.init_seq import r2_sequence, sb_sequence
+from .utils.median import geometric_median
+from .utils.priors import construct_default_kernel, guess_priors, make_roundflat
 from .utils.progress import get_progress_bar
 from .utils.result import create_result, expected_minimum
+from .utils.serialization import load_gpr, load_optimizer, save_gpr, save_optimizer
 from .utils.validation import validate_zeroone
+
+__version__ = "0.6.0"  # the JAX package's
 
 __all__ = [
     "BayesGPR",
     "Optimizer",
+    "ACQUISITION_FUNC",
+    "evaluate_acquisitions",
+    "evaluate_acquisitions_fused",
     "ExpectedImprovement",
     "TopTwoEI",
     "Expectation",
@@ -38,16 +49,21 @@ __all__ = [
     "ThompsonSampling",
     "VarianceReduction",
     "PVRS",
-    "evaluate_acquisitions",
-    "evaluate_acquisitions_fused",
     "Space",
     "Real",
     "Integer",
     "Categorical",
-    "get_progress_bar",
+    "normalize_dimensions",
+    "geometric_median",
+    "guess_priors",
+    "construct_default_kernel",
+    "make_roundflat",
+    "r2_sequence",
+    "sb_sequence",
+    "validate_zeroone",
     "create_result",
     "expected_minimum",
-    "validate_zeroone",
+    "__version__",
 ]
 
 

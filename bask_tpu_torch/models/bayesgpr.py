@@ -917,6 +917,7 @@ class BayesGPR:
         n_burnin: int = 0,
         n_thin: int = 1,
         n_walkers_per_thread: int = 100,
+        progress: bool = False,
         priors=None,
         warp_priors=None,
         position=None,
@@ -942,14 +943,15 @@ class BayesGPR:
         ``until_rhat`` then warm-extends the chain in legs of
         ``extension_steps`` steps until the max split R-hat of its second
         half is at most ``until_rhat``, or ``max_extensions`` legs were
-        added.
+        added. ``progress`` shows a progress bar over each run's steps
+        (a no-op where ``tqdm`` is missing); the chain is the same.
         """
         self.until_rhat_result_ = None
         if isinstance(warn_rhat, str):  # "default"
             warn_rhat = None if until_rhat is not None else DEFAULT_WARN_RHAT
         common = dict(
             n_thin=n_thin,
-            n_walkers_per_thread=n_walkers_per_thread, priors=priors,
+            n_walkers_per_thread=n_walkers_per_thread, progress=progress, priors=priors,
             warp_priors=warp_priors, moves=moves, warn_rhat=None, **kwargs,
         )
         if until_rhat is not None:
@@ -1065,7 +1067,7 @@ class BayesGPR:
         )
         chain_dev, final = run_ensemble(
             log_prob, self._tensor(pos), seed, n_steps,
-            a=float(kwargs.get("a", 2.0)), moves=moves,
+            a=float(kwargs.get("a", 2.0)), moves=moves, progress=progress,
         )
         flat = flatten_chain(chain_dev, discard=n_burnin, thin=n_thin)
         kept_steps = chain_dev[n_burnin + n_thin - 1 :: n_thin].cpu().numpy()
@@ -1124,13 +1126,15 @@ class BayesGPR:
         n_desired_samples: int = 100,
         n_burnin: int = 10,
         n_walkers_per_thread: int = 100,
+        progress: bool = True,
         priors=None,
         warp_priors=None,
         position=None,
         **kwargs,
     ):
         """ML-II warm start (kernel theta at the identity warp; theta0
-        with ``optimizer=None``), then hyperposterior sampling."""
+        with ``optimizer=None``), then hyperposterior sampling (with a
+        progress bar by default, as in the JAX package)."""
         if self.noise == "gaussian" and bk.white_theta_index(self._user_kernel) is None:
             self._spec = self._user_kernel + bk.WhiteKernel(1.0, (1e-5, 1e5))
         else:
@@ -1146,6 +1150,7 @@ class BayesGPR:
             n_desired_samples=n_desired_samples,
             n_burnin=n_burnin,
             n_walkers_per_thread=n_walkers_per_thread,
+            progress=progress,
             priors=priors,
             warp_priors=warp_priors,
             position=position,
@@ -1410,9 +1415,10 @@ class BayesGPR:
         )
         return idx.cpu().numpy()
 
-    def log_marginal_likelihood(self, theta=None):
+    def log_marginal_likelihood(self, theta=None, clone_kernel=True):
         """The consensus LML, or the LML at ``theta`` on the posterior's
-        (warped) data."""
+        (warped) data. ``clone_kernel`` is accepted for scikit-learn's
+        signature and changes nothing, as in the JAX package."""
         if theta is None:
             return self.log_marginal_likelihood_value_
         data = self._post_data if self._post_data is not None else self._data

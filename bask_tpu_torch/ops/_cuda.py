@@ -41,6 +41,10 @@ _GRAM_ARGS = [  # thetas, theta_stride, has_const, has_white, n_ls,
 _SIGNATURES = {
     "bask_gram_f32": _GRAM_ARGS,
     "bask_gram_lower_f32": _GRAM_ARGS,  # n_pad a multiple of 128
+    # K1's arguments with wb (walkers per block) after nu_code; shared X
+    "bask_gram_wb_f32": _GRAM_ARGS[:13] + [_I] + _GRAM_ARGS[13:],
+    # kernel (0 K1, 1 K2, 2 K4), nu_code, d, out: resident blocks per SM
+    "bask_gram_blocks_per_sm": [_I, _I, _I, _P],
     # A, batch_stride, row_stride, L, Linv, batch, m, stream
     "bask_chol_inv_f32": [_P, _LL, _LL, _P, _P, _I, _I, _P],
 }

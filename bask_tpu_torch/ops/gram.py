@@ -48,6 +48,16 @@ K2 writes the same bytes (its zeros are stored, as on the TPU) and
 computes only the lower 128-tiles, 10 of 16 at n_pad = 512: the same
 write bound.
 
+K4, :func:`fused_masked_gram_wb_batch`, replaces
+``benchmarks/bench_gram_wb.py::gram_wb``: K1's function for shared X,
+with one CUDA block serving ``wb`` walkers of a tile. The block stages
+the tile's raw X once and scales it by each walker's own ``1/ls``, so
+every entry is K1's bit for bit; what it saves is K1's per-block latency
+(the X loads and the block's start) on all but one walker of ``wb``. Its
+plain version is K1's, :func:`fused_masked_gram_plain`.
+:func:`fused_masked_gram_batch` sends shared-X calls at the shapes of
+:data:`_K4_SHAPES` (the batch ask's) to it.
+
 :func:`_pack_params` (the packed rows ``[amp, noise, 1/ls...]``, as the
 JAX package packs them) stays for the plain version and the tests.
 """
@@ -70,6 +80,7 @@ __all__ = [
     "fused_masked_gram_plain",
     "fused_masked_gram_lower_batch",
     "fused_masked_gram_lower_plain",
+    "fused_masked_gram_wb_batch",
     "LOWER_GRAM",
 ]
 
@@ -78,6 +89,20 @@ _TILE = 64  # the kernel's row tile; n_pad must be a multiple
 LOWER_GRAM = "off"
 _SQ_TILE = 128  # K2's zero pattern follows 128-tiles; n_pad must be a multiple
 _NU_CODE = {0.5: 0, 1.5: 1, 2.5: 2, math.inf: 3}
+# The shared-X shapes (walkers, n_pad, d) at which fused_masked_gram_batch
+# launches K4 with _K4_WB walkers per block instead of K1: those where
+# chip_smoke.py phase 11 measured K4 faster than K1 by more than the
+# spread of both (the batch ask's grams). Device time alone, medians of
+# four turns in each of three runs, on an NVIDIA H100 80GB HBM3 at a
+# 700.00 W power limit (PERF.md section 6):
+#   (256, 1024, 1024), d 15: K1 690.7-695.8 us, K4 wb 8 635.4-644.5 us;
+#   (128, 1024, 1024), d 15: K1 350.1-350.5 us, K4 wb 8 337.9-338.8 us.
+# Not routed: (50, 512, 512), d 15, where K4 lost (K1 40.0-40.1 us, K4
+# wb 2 44.6-44.8 us: fewer, longer blocks leave more of the last wave
+# idle), and any shape not measured. The gain is per layer only: the
+# grams are ~1 % of a 2-second batch ask.
+_K4_SHAPES = frozenset({(256, 1024, 15), (128, 1024, 15)})
+_K4_WB = 8
 
 
 class FusedSpec(NamedTuple):
@@ -194,16 +219,28 @@ def fused_masked_gram_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real: int)
     (an int: it is a kernel argument).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel (and raises if it cannot).
+    kernel (and raises if it cannot): K1, or K4 (bit-equal) for shared X
+    at a shape of :data:`_K4_SHAPES`.
     """
+    if not X.is_cuda:
+        return fused_masked_gram_plain(spec, thetas, X, alpha_diag, n_real)
+    if X.ndim == 2 and (thetas.shape[0], *X.shape) in _K4_SHAPES:
+        return fused_masked_gram_wb_batch(spec, thetas, X, alpha_diag, n_real, _K4_WB)
+    return _k1_gram_batch(spec, thetas, X, alpha_diag, n_real)
+
+
+fused_masked_gram_batch.launches = 0  # K1's launches
+
+
+def _k1_gram_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real: int):
+    """K1 itself at every shape (no K4 route), counted in
+    ``fused_masked_gram_batch.launches``: for the checks and timings that
+    hold K1, or K4 against it. A CPU tensor runs the plain version."""
     if not X.is_cuda:
         return fused_masked_gram_plain(spec, thetas, X, alpha_diag, n_real)
     out = _launch("bask_gram_f32", _TILE, spec, thetas, X, alpha_diag, n_real)
     fused_masked_gram_batch.launches += 1
     return out
-
-
-fused_masked_gram_batch.launches = 0
 
 
 def fused_masked_gram_lower_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real: int):
@@ -223,9 +260,47 @@ def fused_masked_gram_lower_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real
 fused_masked_gram_lower_batch.launches = 0
 
 
-def _launch(entry: str, multiple: int, spec, thetas, X, alpha_diag, n_real):
+def fused_masked_gram_wb_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real: int, wb: int):
+    """K4: :func:`fused_masked_gram_batch` for shared ``X`` (n_pad, d),
+    with one CUDA block serving ``wb`` walkers of a tile (the last block
+    the ``B % wb`` left over). The same function as K1, bit for bit on
+    the card; per-walker X and ``wb < 1`` are refused.
+
+    A CPU tensor runs the plain version (:func:`fused_masked_gram_plain`);
+    a CUDA tensor launches the kernel (and raises if it cannot).
+    """
+    if X.ndim != 2:
+        raise ValueError(f"K4 takes shared X (n_pad, d), got {tuple(X.shape)}")
+    if int(wb) < 1:
+        raise ValueError(f"wb={wb}: K4 needs at least one walker per block")
+    if not X.is_cuda:
+        return fused_masked_gram_plain(spec, thetas, X, alpha_diag, n_real)
+    out = _launch("bask_gram_wb_f32", _TILE, spec, thetas, X, alpha_diag, n_real, wb=int(wb))
+    fused_masked_gram_wb_batch.launches += 1
+    return out
+
+
+fused_masked_gram_wb_batch.launches = 0
+
+
+def _blocks_per_sm(kernel: str, nu: float, d: int) -> int:
+    """Resident blocks per SM of the built ``kernel`` ("K1", "K2" or "K4")
+    for ``nu`` and ``d`` on the current CUDA device, from CUDA's occupancy
+    calculator (K4's count holds for every ``wb``)."""
+    from ._cuda import check, library
+
+    out = ctypes.c_int(0)
+    err = library().bask_gram_blocks_per_sm(
+        ("K1", "K2", "K4").index(kernel), _NU_CODE[nu], int(d), ctypes.byref(out)
+    )
+    check(err, "bask_gram_blocks_per_sm")
+    return out.value
+
+
+def _launch(entry: str, multiple: int, spec, thetas, X, alpha_diag, n_real, wb=None):
     """Check the arguments, then launch the C entry point ``entry`` of
-    ``csrc/gram.cu`` on the current stream: one device operation."""
+    ``csrc/gram.cu`` on the current stream: one device operation. ``wb``
+    (K4's walkers per block) goes after the nu code where it is given."""
     from ._cuda import check, library
 
     B = thetas.shape[0]
@@ -259,24 +334,22 @@ def _launch(entry: str, multiple: int, spec, thetas, X, alpha_diag, n_real):
         thetas = thetas.contiguous()
     out = torch.empty((B, n_pad, n_pad), dtype=torch.float32, device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    check(
-        getattr(library(), entry)(
-            thetas.data_ptr(),
-            thetas.stride(0),
-            int(spec.has_const),
-            int(spec.has_white),
-            spec.n_ls,
-            X.data_ptr(),
-            ctypes.c_longlong(n_pad * d if X.ndim == 3 else 0),
-            alpha_diag.data_ptr(),
-            int(n_real),
-            B,
-            n_pad,
-            d,
-            _NU_CODE[spec.nu],
-            out.data_ptr(),
-            stream,
-        ),
-        entry,
-    )
+    args = [
+        thetas.data_ptr(),
+        thetas.stride(0),
+        int(spec.has_const),
+        int(spec.has_white),
+        spec.n_ls,
+        X.data_ptr(),
+        ctypes.c_longlong(n_pad * d if X.ndim == 3 else 0),
+        alpha_diag.data_ptr(),
+        int(n_real),
+        B,
+        n_pad,
+        d,
+        _NU_CODE[spec.nu],
+    ]
+    if wb is not None:
+        args.append(wb)
+    check(getattr(library(), entry)(*args, out.data_ptr(), stream), entry)
     return out

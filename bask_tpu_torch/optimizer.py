@@ -267,9 +267,11 @@ class Optimizer:
         n_samples: int = 0,
         gp_samples: int = 100,
         gp_burnin: int = 10,
+        progress: bool = False,
     ):
         """Report objective value(s); past the initial design, refit the GP
-        and compute the next proposal. Returns a scipy OptimizeResult."""
+        (with a progress bar over the chain if ``progress``) and compute
+        the next proposal. Returns a scipy OptimizeResult."""
         if replace:
             self.Xi, self.yi, self.noisei = [], [], []
             self._n_initial_points = self.n_initial_points_
@@ -280,6 +282,15 @@ class Optimizer:
         self._n_initial_points -= len(ys)
 
         if fit and self._n_initial_points <= 0:
+            if (
+                self.gp_priors is not None
+                and not callable(self.gp_priors)
+                and len(self.gp_priors) != self.space.transformed_n_dims + 2
+            ):
+                raise ValueError(
+                    "The number of priors does not match the number of "
+                    "dimensions + 2."
+                )
             t_fit = time.perf_counter()
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore")
@@ -288,6 +299,7 @@ class Optimizer:
                     priors=self.gp_priors,
                     n_desired_samples=gp_samples,
                     n_burnin=gp_burnin,
+                    progress=progress,
                 )
                 common.update(self.gp_sample_kwargs)
                 if self.gp.pos_ is None or replace:

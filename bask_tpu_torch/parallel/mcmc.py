@@ -28,6 +28,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..utils.progress import get_progress_bar
+
 __all__ = [
     "EnsembleState",
     "init_ensemble",
@@ -290,8 +292,12 @@ def make_step_fn(log_prob_fn: Callable, a: float = 2.0, moves=None):
     return step, weights
 
 
+_PROGRESS_CHUNK = 8  # steps per progress-bar tick, as the JAX package
+
+
 def run_ensemble(
-    log_prob_fn: Callable, pos0, seed: int, n_steps: int, a: float = 2.0, moves=None
+    log_prob_fn: Callable, pos0, seed: int, n_steps: int, a: float = 2.0, moves=None,
+    progress: bool = False,
 ):
     """Run ``n_steps`` full ensemble steps from ``pos0``.
 
@@ -299,7 +305,10 @@ def run_ensemble(
     device generator of the proposals and the host draw of the move per
     step. Returns ``(chain, final_state)`` with ``chain`` of shape
     (n_steps, W, D), one sample per walker per step (emcee's
-    ``get_chain`` layout).
+    ``get_chain`` layout). ``progress`` ticks a progress bar
+    (:func:`~bask_tpu_torch.utils.progress.get_progress_bar`) every 8
+    steps, as queued (the device may still run them); the chain is the
+    same either way.
     """
     validate_walker_count(pos0.shape[0], moves)
     step, weights = make_step_fn(log_prob_fn, a=a, moves=moves)
@@ -307,10 +316,14 @@ def run_ensemble(
     gen = torch.Generator(device=pos0.device)
     gen.manual_seed(int(seed))
     state = init_ensemble(log_prob_fn, pos0)
+    pbar = get_progress_bar(progress, n_steps)
     chain = []
     for i in range(n_steps):
         state = step(state, int(move_idx[i]), gen)
         chain.append(state.pos)
+        if (i + 1) % _PROGRESS_CHUNK == 0 or i + 1 == n_steps:
+            pbar.update((i % _PROGRESS_CHUNK) + 1)
+    pbar.close()
     return torch.stack(chain), state
 
 

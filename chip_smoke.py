@@ -38,10 +38,13 @@ Phases, each printing one result line:
    which are the ``launches`` of the kernel table;
 8. the batch ask at the shape of ``benchmarks/bench_batch_ask.py``
    (n = 1,000 in 15-D padded to 1,024, 256 walkers, normalized y): a cold
-   tell with an EI pass over 65,536 candidates, then ``ask(n_points=256)``
-   twice (pathwise Thompson top-k, K1 at (256, 1024, 1024) and its
-   blocked factorization with K3 bases); K1 alone at (256, 1024, 1024)
-   and (128, 1024, 1024) against its float64 plain version on a few rows,
+   tell with an EI pass over 65,536 candidates (its (128 | 256, 1024,
+   1024) grams from K4, to which ``gram._K4_SHAPES`` sends them), then
+   ``ask(n_points=256)`` twice (pathwise Thompson top-k, the rows'
+   (256, 1024, 1024) gram from K4 and its blocked factorization with K3
+   bases); the grams at (256, 1024, 1024) and (128, 1024, 1024) through
+   the route (K4) and from K1 itself, each alone and against its float64
+   plain version on a few rows,
    the (256, 1024, 1024) factorization A/B against ``cholesky_ex``, and
    4 of 256 pathwise draws held to a float64 recomputation;
 9. on phase 6's fitted Optimizer (n = 500, d = 15): a warm tell with the
@@ -63,9 +66,21 @@ Phases, each printing one result line:
    host adapter, timed beside the same chain with the lifted prior. Each
    fit's consensus LML is held to float64 at phase 6's bound or, where
    cond(K) makes float32 miss that, at twice the error of the float32
-   ``cholesky_ex`` path at the same theta.
+   ``cholesky_ex`` path at the same theta;
+11. K4 (the walker-batched gram, ``csrc/gram.cu``): against its plain
+   version in float64 at (50, 512, 512), d = 15, for all four nu; bit-equal
+   to K1 at (50, 512, 512) with 2 and 5 walkers per block, at
+   (256, 1024, 1024) with 2, 4 and 8 and at (128, 1024, 1024) with 4 and
+   8, for the spec variants; one device operation per call; its device
+   time alone next to K1's at (50, 512, 512), (128, 1024, 1024) and
+   (256, 1024, 1024), in turns; registers from nvcc's report and resident
+   blocks per SM from CUDA's occupancy calculator; the batched LML at each
+   shape of ``gram._K4_SHAPES``, bit-equal to K1's; then the path that
+   reaches K4,
+   ``scripts/bench_gram_wb.run`` (2 and 5 walkers per block). It runs
+   after phase 4b, with the other kernel phases.
 
-The ``launches`` of the kernel table sum phases 7-10, each counted from 0
+The ``launches`` of the kernel table sum phases 7-11, each counted from 0
 just before the phase drives its path and read just after it.
 
 No failure is caught: a phase that fails ends the run with a non-zero
@@ -610,6 +625,7 @@ def _kernel_counters():
         "K1": gram.fused_masked_gram_batch,
         "K2": gram.fused_masked_gram_lower_batch,
         "K3": chol_base.chol_inv_base,
+        "K4": gram.fused_masked_gram_wb_batch,
     }
 
 
@@ -820,10 +836,12 @@ def batch_dataset():
     return X, y
 
 
-def _gram_at(dev, kernel, B, thetas_of, X):
-    """K1 at (B, BATCH_PAD, BATCH_PAD) on the batch data for ``B`` chain
-    rows, held to its float64 plain version on 4 rows (4e-6 max|K|, the
-    bound of phase 2); the wrapper's and the kernel's time."""
+def _gram_at(dev, kernel, B, thetas_of, X, routed):
+    """The gram at (B, BATCH_PAD, BATCH_PAD) on the batch data for ``B``
+    chain rows: through ``gram.fused_masked_gram_batch`` as the path calls
+    it (``routed``: K4 at the shapes of ``gram._K4_SHAPES``), or K1 itself.
+    Held to its float64 plain version on 4 rows (4e-6 max|K|, the bound of
+    phase 2); the wrapper's and the kernel's time."""
     import torch
 
     from bask_tpu_torch.ops import gram
@@ -833,7 +851,11 @@ def _gram_at(dev, kernel, B, thetas_of, X):
     Xd = torch.tensor(X, dtype=torch.float32, device=dev)
     alpha = torch.full((BATCH_PAD,), 1e-6, dtype=torch.float32, device=dev)
     args = (spec, th, Xd, alpha, BATCH_OBS)
-    K = gram.fused_masked_gram_batch(*args)
+    fn = gram.fused_masked_gram_batch if routed else gram._k1_gram_batch
+    counters = _kernel_counters()
+    before = {k: f.launches for k, f in counters.items()}
+    K = fn(*args)
+    launched = [k for k, f in counters.items() if f.launches > before[k]]
     rows = [0, B // 3, 2 * B // 3, B - 1]
     ref = gram.fused_masked_gram_plain(
         spec, th[rows].double(), Xd.double(), alpha.double(), BATCH_OBS
@@ -841,15 +863,16 @@ def _gram_at(dev, kernel, B, thetas_of, X):
     err = float((K[rows].double() - ref).abs().max())
     bound_err = 4e-6 * float(ref.abs().max())
     del K, ref
-    ms = cuda_ms(lambda: gram.fused_masked_gram_batch(*args), reps=10)
+    ms = cuda_ms(lambda: fn(*args), reps=10)
     plain_ms = cuda_ms(lambda: gram.fused_masked_gram_plain(*args), reps=3)
-    _, ops = profiled(lambda: gram.fused_masked_gram_batch(*args), reps=5)
+    _, ops = profiled(lambda: fn(*args), reps=5)
     bound, by = gram_bound(B, BATCH_PAD, N_DIM)
-    out = {"shape": [B, BATCH_PAD, BATCH_PAD], "max_abs_err": err, "err_bound": bound_err,
-           "ms": ms, "kernel_alone_us": kernel_us(ops, "gram_kernel"), "plain_ms": plain_ms,
-           "bound_ms": bound, "bound_by": by, "library_ms": None}
+    name = "gram_wb_kernel" if launched == ["K4"] else "gram_kernel"
+    out = {"shape": [B, BATCH_PAD, BATCH_PAD], "kernel": launched, "max_abs_err": err,
+           "err_bound": bound_err, "ms": ms, "kernel_alone_us": kernel_us(ops, name),
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None}
     if not err <= bound_err:
-        raise AssertionError(f"K1 disagrees with its plain version: {out}")
+        raise AssertionError(f"{launched} disagrees with its plain version: {out}")
     return out
 
 
@@ -961,8 +984,9 @@ def _draws_tf32(gp, spec, rows, rand, Xq):
 def phase_batch_ask(dev):
     """BASELINE configs[4] through the Optimizer: a cold batch tell of
     1,000 points (256 walkers, EI over 65,536 candidates), then two
-    256-point batch asks; K1 at the path's shapes, the factorization A/B
-    and 4 draws against float64. Returns (launches, K1 and K3 extras)."""
+    256-point batch asks; the routed grams (K4) and K1 itself at the
+    path's shapes, the factorization A/B and 4 draws against float64.
+    Returns (launches, K1, K4 and K3 extras)."""
     import torch
 
     from bask_tpu_torch import Optimizer
@@ -1047,7 +1071,11 @@ def phase_batch_ask(dev):
     def thetas_of(B):
         return torch.tensor(theta_rows[:B], dtype=torch.float32, device=dev)
 
-    k1 = [_gram_at(dev, gp._spec, B, thetas_of, Xp) for B in (BATCH_WALKERS, BATCH_WALKERS // 2)]
+    # the grams the path launches (K4 through the route) and K1 itself,
+    # each against float64
+    shapes = (BATCH_WALKERS, BATCH_WALKERS // 2)
+    k4 = [_gram_at(dev, gp._spec, B, thetas_of, Xp, routed=True) for B in shapes]
+    k1 = [_gram_at(dev, gp._spec, B, thetas_of, Xp, routed=False) for B in shapes]
     Kp = gram.fused_masked_gram_batch(
         spec, thetas_of(BATCH_WALKERS), gp._data.X, gp._data.alpha_diag, BATCH_OBS
     )
@@ -1060,7 +1088,7 @@ def phase_batch_ask(dev):
         last_timings=opt.last_timings_, distinct_points=distinct, inside_bounds=inside,
         launches=per_step, peak_mem_gb=peak_gb, chunk_bytes=pathwise.CHUNK_BYTES,
         ask_profile=ask_profile,
-        k1=k1, factorization_ab=factor,
+        k4=k4, k1=k1, factorization_ab=factor,
         draws_f64={"draws": keep, "max_abs_err": err.tolist(), "scale": scale.tolist(),
                    "rel_err": (err / scale).tolist(), "tol": tol.tolist(),
                    "upper_bound_cond_K": upper.tolist(), "cond_K": conds,
@@ -1071,9 +1099,13 @@ def phase_batch_ask(dev):
     checks = {
         "256 distinct points per ask": distinct == [BATCH_K, BATCH_K],
         "points inside bounds": inside,
-        "K1 ran in each ask": all(per_step[f"ask {i}"]["K1"] >= 1 for i in (1, 2)),
+        # the rows' (256, 1024, 1024) gram: K4, by gram._K4_SHAPES
+        "K4 ran in each ask": all(per_step[f"ask {i}"]["K4"] >= 1 for i in (1, 2)),
         "K3 8 per factorization in each ask": all(
-            per_step[f"ask {i}"]["K3"] == 8 * per_step[f"ask {i}"]["K1"] for i in (1, 2)),
+            per_step[f"ask {i}"]["K3"] == 8 * (per_step[f"ask {i}"]["K1"] + per_step[f"ask {i}"]["K4"])
+            for i in (1, 2)),
+        "the route launched K4 at both shapes": all(r["kernel"] == ["K4"] for r in k4),
+        "K1 itself launched at both shapes": all(r["kernel"] == ["K1"] for r in k1),
         "factorization: 8 K3 launches": factor["k3_launches"] == 8,
         "K3 launch timed under the profiler": factor["k3_launch"]["alone_us"] is not None,
         "4 draws agree with float64": draws_ok,
@@ -1085,7 +1117,7 @@ def phase_batch_ask(dev):
     k3_ab = {"shape": factor["shape"], "blocked_ms": float(np.median(factor["ms_turns"]["blocked"])),
              "library_ms": float(np.median(factor["ms_turns"]["cholesky_ex"])),
              "launches_per_factorization": factor["k3_launches"], "per_launch": factor["k3_launch"]}
-    return launches, k1, k3_ab
+    return launches, k1, k4, k3_ab
 
 
 def phase_stopping_polish(opt, dev):
@@ -1206,9 +1238,10 @@ def phase_stopping_polish(opt, dev):
     return launches
 
 
-def phase_fit_options(opt, dev):
+def phase_fit_options(opt, dev, progress=True):
     """Phase 10: the fit options at the north-star shape, then checks on
-    phase 6's Optimizer (``opt``). Returns the launch counts of (a)-(d)
+    phase 6's Optimizer (``opt``). The fits show ``fit``'s progress bar
+    unless ``progress`` is False. Returns the launch counts of (a)-(d)
     and (g), each fit counted from 0."""
     import tempfile
     import warnings
@@ -1228,7 +1261,7 @@ def phase_fit_options(opt, dev):
     lifted = ([sps.norm(0.0, 1.0).logpdf] + [sps.norm(math.log(0.3), 1.0).logpdf] * N_DIM
               + [sps.norm(math.log(0.05), 2.0).logpdf])
     fit_kw = dict(n_desired_samples=10 * N_WALKERS, n_walkers_per_thread=N_WALKERS, n_burnin=10,
-                  warn_rhat=None)
+                  warn_rhat=None, progress=progress)
     by_fit, seconds, out = {}, {}, {}
 
     def run_fit(name, gp_kernel, priors=None, steps=fit_kw, **gp_kw):
@@ -1415,6 +1448,204 @@ def phase_fit_options(opt, dev):
     return total
 
 
+def _ptxas_entries(kernel_name, report_text=None):
+    """[(entry, registers, spill bytes, shared bytes)] of the built entry
+    functions whose name holds ``kernel_name``, from nvcc's -Xptxas=-v
+    report (``report_text``, by default the one in ``_cuda.build_info``,
+    which only a run that built the library fills)."""
+    import re
+
+    from bask_tpu_torch.ops import _cuda
+
+    if report_text is None:
+        report_text = _cuda.build_info.get("ptxas", "")
+    out, entry, spill = [], None, 0
+    for ln in report_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = int(m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", ln)
+        if m and entry and kernel_name in entry:
+            out.append((entry, int(m.group(1)), spill, int(m.group(2))))
+    return out
+
+
+def _load_script(name):
+    """A module of ``scripts/`` beside this file."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_wb_gram(dev):
+    """Phase 11: K4, the walker-batched gram (``csrc/gram.cu``,
+    ``gram.fused_masked_gram_wb_batch``): within 4e-6 max|K| of the float64
+    plain version at (50, 512, 512), d 15, for all four nu; bit-equal to K1
+    (``gram._k1_gram_batch``) at (50, 512, 512) with wb 2 and 5, at
+    (256, 1024, 1024) with wb 2, 4 and 8 and at (128, 1024, 1024) with wb
+    4 and 8, for the spec variants; one device operation per call; its
+    device time alone next to K1's (wb = 1) at (50 | 128 | 256, ...) in
+    turns; registers from nvcc's report and resident blocks per SM from
+    the occupancy calculator; the batched LML at each routed shape against
+    K1's; then ``scripts/bench_gram_wb.run`` with the counts from 0.
+    Returns (the kernel table's row, the launch counts of the script)."""
+    import torch
+
+    from bask_tpu_torch.ops import gram
+    from bask_tpu_torch.ops import kernels as bk
+
+    rng = np.random.RandomState(21)
+    X, _ = bench_dataset()
+    Xb, _ = batch_dataset()
+    Xp = np.full((BATCH_PAD, N_DIM), 0.5)
+    Xp[:BATCH_OBS] = Xb
+    data = {N_PAD: (torch.tensor(padded(X), dtype=torch.float32, device=dev), N_OBS),
+            BATCH_PAD: (torch.tensor(Xp, dtype=torch.float32, device=dev), BATCH_OBS)}
+    alphas = {n: torch.full((n,), 1e-6, dtype=torch.float32, device=dev) for n in data}
+
+    def inputs(kernel, B, n_pad):
+        th = torch.tensor(kernel.theta0[None] + 0.2 * rng.randn(B, kernel.n_theta),
+                          dtype=torch.float32, device=dev)
+        Xd, n_real = data[n_pad]
+        return gram.match_fusable(kernel), th, Xd, alphas[n_pad], n_real
+
+    def k4(args, wb):
+        return gram.fused_masked_gram_wb_batch(*args, wb)
+
+    # (a) against float64, the bound of phase 2
+    B = N_WALKERS // 2
+    to_f64, worst = [], 0.0
+    for nu in (0.5, 1.5, 2.5, math.inf):
+        args = inputs(bench_kernel(bk, nu), B, N_PAD)
+        K = k4(args, 5)
+        spec, th, Xd, alpha, n_real = args
+        ref = gram.fused_masked_gram_plain(spec, th.double(), Xd.double(), alpha.double(), n_real)
+        err = float((K.double() - ref).abs().max())
+        bound = 4e-6 * float(ref.abs().max())
+        to_f64.append({"nu": nu, "wb": 5, "max_abs_err": err, "bound": bound,
+                       "ok": bool(torch.isfinite(K).all()) and err <= bound})
+        worst = max(worst, err)
+        del K, ref
+    # (b) bit-equal to K1
+    kernels = [(f"nu={nu}", bench_kernel(bk, nu)) for nu in (0.5, 1.5, 2.5, math.inf)]
+    kernels += [(v, variant_kernel(bk, v)) for v in ("no ConstantKernel", "no WhiteKernel", "isotropic")]
+    equal = []
+    for B, n_pad, wbs, cases in ((N_WALKERS // 2, N_PAD, (2, 5), kernels),
+                                 (BATCH_WALKERS, BATCH_PAD, (2, 4, 8), kernels[2:]),
+                                 (BATCH_WALKERS // 2, BATCH_PAD, (4, 8), kernels[2:])):
+        for label, kernel in cases:
+            args = inputs(kernel, B, n_pad)
+            K1 = gram._k1_gram_batch(*args)
+            for wb in wbs:
+                same = bool(torch.equal(k4(args, wb), K1))
+                equal.append({"case": label, "shape": [B, n_pad, n_pad], "n_real": args[-1],
+                              "wb": wb, "bit_equal": same})
+            del K1
+    # (c) one device operation per call
+    args = inputs(bench_kernel(bk), N_WALKERS // 2, N_PAD)
+    ops_per_call, _ = profiled(lambda: k4(args, 5))
+    failed = [c for c in to_f64 if not c["ok"]] + [c for c in equal if not c["bit_equal"]]
+    if failed or ops_per_call != 1:
+        raise AssertionError(f"K4 failed: {failed}, {ops_per_call} device operations per call")
+
+    # (d) alone, in turns: each wb in order then reversed, twice; wb = 1
+    # is K1 itself
+    timing = []
+    for B, n_pad, wbs in ((N_WALKERS // 2, N_PAD, (1, 2, 5)),
+                          (BATCH_WALKERS // 2, BATCH_PAD, (1, 2, 4, 8)),
+                          (BATCH_WALKERS, BATCH_PAD, (1, 2, 4, 8))):
+        args = inputs(bench_kernel(bk), B, n_pad)
+        turns = {wb: [] for wb in wbs}
+        for wb in (list(wbs) + list(wbs)[::-1]) * 2:
+            if wb == 1:
+                _, ops = profiled(lambda: gram._k1_gram_batch(*args), reps=10)
+                turns[wb].append(kernel_us(ops, "gram_kernel"))
+            else:
+                _, ops = profiled(lambda: k4(args, wb), reps=10)
+                turns[wb].append(kernel_us(ops, "gram_wb_kernel"))
+        bound, by = gram_bound(B, n_pad, N_DIM)
+        med = {wb: float(np.median(t)) for wb, t in turns.items()}
+        spread = {wb: float(max(t) - min(t)) for wb, t in turns.items()}
+        timing.append({
+            "shape": [B, n_pad, n_pad], "alone_us_turns": turns, "median_us": med,
+            "spread_us": spread, "bound_us": 1e3 * bound, "bound_by": by,
+            "k4_wins_beyond_spreads": {wb: med[1] - med[wb] > spread[1] + spread[wb]
+                                       for wb in wbs if wb > 1},
+            "blocks": {wb: -(-B // wb) * (n_pad // 64) * -(-n_pad // 128) for wb in wbs},
+        })
+    args = inputs(bench_kernel(bk), N_WALKERS // 2, N_PAD)
+    ms = cuda_ms(lambda: k4(args, 5))
+    k1_ms = cuda_ms(lambda: gram._k1_gram_batch(*args))
+    plain_ms = cuda_ms(lambda: gram.fused_masked_gram_plain(*args))
+    bound, by = gram_bound(N_WALKERS // 2, N_PAD, N_DIM)
+    resources = {name: [{"registers": r, "spill_bytes": s, "smem_bytes": m}
+                        for _, r, s, m in _ptxas_entries(key)]
+                 for name, key in (("K4", "gram_wb_kernel"), ("K1 and K2", "11gram_kernel"))}
+    # K4 stages X once at d 15 and re-stages it per chunk at d 40
+    resources["blocks_per_sm"] = {
+        f"{name} d={d}": [gram._blocks_per_sm(name, nu, d) for nu in (0.5, 1.5, 2.5, math.inf)]
+        for name in ("K1", "K2", "K4") for d in (N_DIM, 40)}
+
+    # the shapes that gram.fused_masked_gram_batch sends to K4: did this
+    # run find K4 faster there beyond both spreads?
+    won = {(*t["shape"][:2], N_DIM): t["k4_wins_beyond_spreads"] for t in timing}
+    route = [{"walkers_n_pad_d": list(key), "wb": gram._K4_WB,
+              "k4_wins_in_this_run": won.get(key, {}).get(gram._K4_WB)}
+             for key in sorted(gram._K4_SHAPES)]
+    # (f) the batched LML at each routed shape (the batch ask's data): K4's
+    # grams give K1's LMLs bit for bit
+    from bask_tpu_torch.ops import linalg
+
+    _, yb = batch_dataset()
+    yp = np.zeros(BATCH_PAD)
+    yp[:BATCH_OBS] = (yb - yb.mean()) / yb.std()
+    y_t = torch.tensor(yp, dtype=torch.float32, device=dev)
+    mask = torch.tensor(np.arange(BATCH_PAD) < BATCH_OBS, device=dev)
+    kernel = bench_kernel(bk)
+    for r in route:
+        B, n_pad, d = r["walkers_n_pad_d"]
+        if (n_pad, d) != (BATCH_PAD, N_DIM):
+            raise AssertionError(f"phase 11 has no data for the routed shape {r}")
+        spec, th, Xd, alpha, n_real = inputs(kernel, B, n_pad)
+        before = gram.fused_masked_gram_wb_batch.launches
+        via_k4 = linalg.batched_lml(kernel, th, Xd, y_t, alpha, mask, n_real=n_real)
+        r["k4_launches_in_lml"] = gram.fused_masked_gram_wb_batch.launches - before
+        via_k1 = linalg.batched_lml_from_gram(gram._k1_gram_batch(spec, th, Xd, alpha, n_real),
+                                              y_t, mask)
+        r["lml_bit_equal_to_k1"] = bool(torch.equal(via_k4, via_k1))
+        r["lml_finite"] = bool(torch.isfinite(via_k4).all())
+    if not all(r["k4_launches_in_lml"] == 1 and r["lml_bit_equal_to_k1"] for r in route):
+        raise AssertionError(f"the LML through the K4 route differs from K1's: {route}")
+
+    # (e) the port's bench_gram_wb.py, the path that reaches K4
+    bench = _load_script("bench_gram_wb")
+    for fn in _kernel_counters().values():
+        fn.launches = 0
+    script = [bench.run(wb, 20) for wb in (2, 5)]
+    launches = _counts()
+    report("phase 11 K4 walker-batched gram", to_float64=to_f64, bit_equal_to_k1=equal,
+           device_ops_per_call=ops_per_call, alone=timing, ms=ms, k1_ms=k1_ms,
+           plain_ms=plain_ms, bound_ms=bound, bound_by=by, resources=resources,
+           route=route, bench_gram_wb=script, launches=launches)
+    if launches["K4"] == 0:
+        raise AssertionError("scripts/bench_gram_wb.py did not launch K4")
+    row = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": by, "library_ms": None, "routed_shapes": route,
+           "alone_us": [{"shape": t["shape"], "median_us": t["median_us"],
+                         "spread_us": t["spread_us"]} for t in timing]}
+    return row, launches
+
+
 def main() -> int:
     import torch
 
@@ -1438,12 +1669,17 @@ def main() -> int:
     k2 = timed("3", phase_lower_gram, dev)
     k3 = timed("4", phase_chol, dev)
     timed("4b", phase_factor_ab, dev)
+    # phase 11 runs with the other kernel phases: on the H100, a profiler
+    # session that starts seconds after an earlier one can record no device
+    # operation at all (scripts/profiler_after_fits.py)
+    k4, k4_path = timed("11", phase_wb_gram, dev)
     timed("5", phase_lml, dev)
     opt = timed("6", phase_optimizer, dev)
     by_path = {"phase 7 warped tell": timed("7", phase_warped_optimizer, dev)}
-    by_path["phase 8 batch ask"], k1_batch, k3_batch = timed("8", phase_batch_ask, dev)
+    by_path["phase 8 batch ask"], k1_batch, k4_batch, k3_batch = timed("8", phase_batch_ask, dev)
     by_path["phase 9 polish"] = timed("9", phase_stopping_polish, opt, dev)
     by_path["phase 10 fit options"] = timed("10", phase_fit_options, opt, dev)
+    by_path["phase 11 bench_gram_wb"] = k4_path
     report("phase seconds", **seconds, total=sum(seconds.values()))
 
     def launches(key):
@@ -1463,6 +1699,10 @@ def main() -> int:
          "source": "bask_tpu_torch/csrc/chol_base.cu",
          "replaces": "bask_tpu/ops/pallas_chol_base.py:105",
          **launches("K3"), **k3, "in_batch_ask_factorization": k3_batch},
+        {"name": "K4 walker-batched gram", "route": "cuda",
+         "source": "bask_tpu_torch/csrc/gram.cu",
+         "replaces": "benchmarks/bench_gram_wb.py:59",
+         **launches("K4"), **k4, "at_batch_ask_shapes": k4_batch},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

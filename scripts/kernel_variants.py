@@ -19,6 +19,13 @@ nu = 5/2, shared X:
 * ``2 blocks per SM``: ``__launch_bounds__`` asking for two resident
   blocks instead of three (more registers, fewer warps).
 
+K4 (``csrc/gram.cu``, ``gram_wb_kernel``) at K1's shape and inputs, 5
+walkers per block, each variant first checked bit-equal to K1:
+
+* ``as is``;
+* ``2 blocks per SM``: its ``__launch_bounds__`` asking for two resident
+  blocks (up to 128 registers a thread, no spills) instead of three.
+
 K3 (``csrc/chol_base.cu``) at (50, 128, 128):
 
 * ``as is``: the kernel, checked against its float64 plain version;
@@ -49,6 +56,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 
 ROUNDS = 2
+WB = 5  # K4's walkers per block
 CSRC = os.path.join(os.path.dirname(os.path.abspath(cs.__file__)), "bask_tpu_torch", "csrc")
 
 
@@ -75,6 +83,14 @@ def gram_variants(src: str) -> dict:
     }
 
 
+def gram_wb_variants(src: str) -> dict:
+    bounds = "__launch_bounds__(kThreads, 3)\ngram_wb_kernel"
+    return {
+        "as is": src,
+        "2 blocks per SM": _replace(src, bounds, bounds.replace("3)", "2)")),
+    }
+
+
 def chol_variants(src: str) -> dict:
     m_update = (
         "          M[a][b] = fmaf(-ca, cb, M[a][b]);\n"
@@ -92,8 +108,15 @@ def chol_variants(src: str) -> dict:
     }
 
 
+# what each kernel's name holds: in the profiler's events, and in ptxas's
+# (mangled) report, where "gram_kernel" alone would also be K2's
+NAMES = {"K1": "gram_kernel", "K3": "chol_inv_kernel", "K4": "gram_wb_kernel"}
+PTXAS_NAMES = {**NAMES, "K1": "11gram_kernelILb0"}
+
+
 def build(variants: dict) -> dict:
-    """{(kernel, name): (library, registers)}, one nvcc per variant."""
+    """{(kernel, name): (library, [(registers, spill bytes)] of the
+    kernel's entries)}, one nvcc per variant."""
     from bask_tpu_torch.ops import _cuda
 
     _cuda._BUILD.mkdir(parents=True, exist_ok=True)
@@ -116,7 +139,7 @@ def build(variants: dict) -> dict:
             if hasattr(lib, name):
                 getattr(lib, name).argtypes = argtypes
                 getattr(lib, name).restype = ctypes.c_int
-        regs = sorted({ln.split(":")[1].strip() for ln in err.splitlines() if "registers" in ln})
+        regs = sorted({(r, s) for _, r, s, _ in cs._ptxas_entries(PTXAS_NAMES[key[0]], err)})
         libs[key] = (lib, regs)
     return libs
 
@@ -135,7 +158,9 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0], flush=True)
     with open(os.path.join(CSRC, "gram.cu")) as f:
-        variants = {("K1", k): v for k, v in gram_variants(f.read()).items()}
+        src = f.read()
+    variants = {("K1", k): v for k, v in gram_variants(src).items()}
+    variants.update({("K4", k): v for k, v in gram_wb_variants(src).items()})
     with open(os.path.join(CSRC, "chol_base.cu")) as f:
         variants.update({("K3", k): v for k, v in chol_variants(f.read()).items()})
     libs = build(variants)
@@ -163,12 +188,19 @@ def main() -> int:
     L = torch.empty_like(A)
     Linv = torch.empty_like(A)
 
+    K4 = torch.empty_like(K)
+
     def launch(key):
         lib = libs[key][0]
         if key[0] == "K1":
             return lambda: check(lib.bask_gram_f32(
                 th.data_ptr(), th.stride(0), 1, 1, cs.N_DIM, Xd.data_ptr(), 0,
                 alpha.data_ptr(), cs.N_OBS, B, cs.N_PAD, cs.N_DIM, 2, K.data_ptr(), stream,
+            ))
+        if key[0] == "K4":
+            return lambda: check(lib.bask_gram_wb_f32(
+                th.data_ptr(), th.stride(0), 1, 1, cs.N_DIM, Xd.data_ptr(), 0,
+                alpha.data_ptr(), cs.N_OBS, B, cs.N_PAD, cs.N_DIM, 2, WB, K4.data_ptr(), stream,
             ))
         return lambda: check(lib.bask_chol_inv_f32(
             A.data_ptr(), A.stride(0), A.stride(1), L.data_ptr(), Linv.data_ptr(), B, m, stream,
@@ -178,6 +210,10 @@ def main() -> int:
     ref = gram.fused_masked_gram_plain(spec, th.double(), Xd.double(), alpha.double(), cs.N_OBS)
     if float((K.double() - ref).abs().max()) > 4e-6 * float(ref.abs().max()):
         raise AssertionError("K1 as is disagrees with its plain version")
+    for variant in gram_wb_variants(src):
+        launch(("K4", variant))()
+        if not torch.equal(K4, K):
+            raise AssertionError(f"K4 {variant} differs from K1")
     launch(("K3", "as is"))()
     Lr, _ = chol_base.chol_inv_plain(A.double())
     if float((L.double() - Lr).abs().max()) > 2e-5:
@@ -185,19 +221,21 @@ def main() -> int:
 
     bounds = {"K1": cs.gram_bound(B, cs.N_PAD, cs.N_DIM),
               "K3": cs.bound_ms(4 * B * (m * (m + 1) // 2 + 2 * m * m), B * 2 * m**3 / 3)}
-    names = {"K1": "gram_kernel", "K3": "chol_inv_kernel"}
+    bounds["K4"] = bounds["K1"]
     times = {key: [] for key in libs}
     order = list(libs) + list(libs)[::-1]
     for _ in range(ROUNDS):
         for key in order:
             _, ops = cs.profiled(launch(key), reps=30)
-            times[key].append(cs.kernel_us(ops, names[key[0]]))
+            times[key].append(cs.kernel_us(ops, NAMES[key[0]]))
     for key, (_, regs) in libs.items():
         bound, by = bounds[key[0]]
         print(json.dumps({"kernel": key[0], "variant": key[1], "alone_us_turns": times[key],
-                          "median_us": float(np.median(times[key])), "registers": regs,
+                          "median_us": float(np.median(times[key])),
+                          "registers_and_spill_bytes": regs,
                           "bound_us": bound * 1e3, "bound_by": by,
-                          "shape": [B, cs.N_PAD, cs.N_PAD] if key[0] == "K1" else [B, m, m]}),
+                          "shape": [B, cs.N_PAD, cs.N_PAD] if key[0] != "K3" else [B, m, m],
+                          **({"wb": WB} if key[0] == "K4" else {})}),
               flush=True)
     return 0
 

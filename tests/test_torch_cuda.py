@@ -9,7 +9,10 @@ launches) against ``cholesky_ex`` in float64, and one pathwise top-k
 against its float64 recomputation; and the paths of the fit options:
 general-nu Matern and Exponentiation LMLs (plain grams, K3 bases, no
 K1), lifted and host priors on CUDA tensors, the Laplace/MAP and device
-L-BFGS fits, prediction gradients and pickling on the card.
+L-BFGS fits, prediction gradients and pickling on the card; K4 (the
+walker-batched gram) bit-equal to K1 for every nu, spec layout, a wide
+d and the batch-ask shapes that the gram wrapper routes to it, and its
+refusals.
 
 Every test here needs a CUDA card and skips without one. The file
 imports no JAX, so it also runs where only the port is installed:
@@ -115,6 +118,104 @@ def test_gram_wrapper_issues_one_device_operation(dev):
         ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         assert len(ops) == 1, [e.name for e in ops]
         assert torch.equal(K, gram.fused_masked_gram_batch(spec, thetas, X, alpha, 500))
+
+
+@pytest.mark.parametrize("nu", [0.5, 1.5, 2.5, math.inf])
+@pytest.mark.parametrize("wb", [2, 5])
+def test_wb_gram_kernel_is_k1_bit_for_bit(dev, nu, wb):
+    """K4 at the chain's shape (50, 512, 512), d 15, n_real 500: every
+    entry equal to K1's, and one launch counted."""
+    spec = gram.FusedSpec(nu=nu, n_ls=15, has_const=True, has_white=True)
+    thetas, X, alpha = _gram_inputs(dev, False, B=50)
+    before = gram.fused_masked_gram_wb_batch.launches
+    K4 = gram.fused_masked_gram_wb_batch(spec, thetas, X, alpha, 500, wb)
+    torch.cuda.synchronize()
+    assert gram.fused_masked_gram_wb_batch.launches == before + 1
+    assert torch.equal(K4, gram.fused_masked_gram_batch(spec, thetas, X, alpha, 500))
+
+
+@pytest.mark.parametrize("variant", sorted(SPEC_VARIANTS))
+def test_wb_gram_kernel_is_k1_for_every_spec_variant(dev, variant):
+    """K4 reads thetas as K1 does: bit-equal for each layout, with a
+    ragged last block (50 walkers, 3 per block)."""
+    spec, n_theta = SPEC_VARIANTS[variant]
+    _, X, alpha = _gram_inputs(dev, False)
+    thetas = torch.tensor(
+        np.log(0.4) + 0.2 * np.random.RandomState(8).randn(50, n_theta),
+        dtype=torch.float32, device=dev,
+    )
+    K4 = gram.fused_masked_gram_wb_batch(spec, thetas, X, alpha, 500, 3)
+    assert torch.equal(K4, gram.fused_masked_gram_batch(spec, thetas, X, alpha, 500))
+
+
+@pytest.mark.parametrize("B,wb", [(256, 4), (256, 8), (128, 4), (128, 8)])
+def test_wb_gram_kernel_at_the_batch_ask_shape(dev, B, wb):
+    """K4 at (B, 1024, 1024), n_real 1,000: K1's gram bit for bit. The
+    gram wrapper routes these shapes to K4 (wb 8): one K4 launch, no K1
+    launch, the same gram."""
+    spec, (thetas, X, alpha) = _batch_ask_grams(dev, B)
+    assert (B, 1024, 15) in gram._K4_SHAPES and gram._K4_WB == 8
+    k1, k4 = gram.fused_masked_gram_batch.launches, gram.fused_masked_gram_wb_batch.launches
+    routed = gram.fused_masked_gram_batch(spec, thetas, X, alpha, 1000)
+    assert gram.fused_masked_gram_batch.launches == k1
+    assert gram.fused_masked_gram_wb_batch.launches == k4 + 1
+    K4 = gram.fused_masked_gram_wb_batch(spec, thetas, X, alpha, 1000, wb)
+    assert torch.equal(routed, K4)
+    assert torch.equal(K4, gram._k1_gram_batch(spec, thetas, X, alpha, 1000))
+    assert gram.fused_masked_gram_batch.launches == k1 + 1
+
+
+def test_wb_gram_kernel_restages_a_wide_d(dev):
+    """d = 40 (three 16-wide chunks, re-staged per walker), isotropic and
+    ARD, 7 walkers in blocks of 3: K1's gram bit for bit."""
+    rng = np.random.RandomState(9)
+    X = np.full((256, 40), 0.5)
+    X[:230] = rng.uniform(size=(230, 40))
+    X = torch.tensor(X, dtype=torch.float32, device=dev)
+    alpha = torch.full((256,), 1e-6, device=dev)
+    for n_ls in (1, 40):
+        spec = gram.FusedSpec(nu=1.5, n_ls=n_ls, has_const=True, has_white=True)
+        thetas = torch.tensor(np.log(1.5) + 0.2 * rng.randn(7, n_ls + 2),
+                              dtype=torch.float32, device=dev)
+        K4 = gram.fused_masked_gram_wb_batch(spec, thetas, X, alpha, 230, 3)
+        assert torch.equal(K4, gram.fused_masked_gram_batch(spec, thetas, X, alpha, 230))
+
+
+@pytest.mark.parametrize("d", [15, 40])
+def test_gram_kernels_keep_three_blocks_per_sm(dev, d):
+    """The occupancy calculator on the built kernels: K1, K2 and K4 each
+    keep the three resident blocks per SM their launch bounds ask for,
+    for every nu (K4 with X staged once at d 15, re-staged at d 40)."""
+    for kernel in ("K1", "K2", "K4"):
+        for nu in (0.5, 1.5, 2.5, math.inf):
+            assert gram._blocks_per_sm(kernel, nu, d) >= 3, (kernel, nu, d)
+
+
+def test_wb_gram_wrapper_refuses_and_launches_one_operation(dev):
+    """K4 refuses per-walker X, wb < 1 and what K1 refuses; one call is
+    one device operation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    spec = gram.match_fusable(KERNEL)
+    thetas, X, alpha = _gram_inputs(dev, False)
+    _, Xw, _ = _gram_inputs(dev, True)
+    with pytest.raises(ValueError):
+        gram.fused_masked_gram_wb_batch(spec, thetas, Xw, alpha, 500, 2)
+    with pytest.raises(ValueError):
+        gram.fused_masked_gram_wb_batch(spec, thetas, X, alpha, 500, 0)
+    with pytest.raises(TypeError):
+        gram.fused_masked_gram_wb_batch(spec, thetas, X.double(), alpha, 500, 2)
+    with pytest.raises(ValueError):
+        gram.fused_masked_gram_wb_batch(spec, thetas, X[:500], alpha[:500], 500, 2)
+    with pytest.raises(ValueError):
+        gram.fused_masked_gram_wb_batch(spec._replace(n_ls=3), thetas[:, :5], X, alpha, 500, 2)
+    gram.fused_masked_gram_wb_batch(spec, thetas, X, alpha, 500, 4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gram.fused_masked_gram_wb_batch(spec, thetas, X, alpha, 500, 4)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(ops) == 1, [e.name for e in ops]
 
 
 def _spd_batch(rng, B, m):
@@ -284,10 +385,11 @@ def _batch_ask_grams(dev, B):
 
 def test_gram_kernel_at_the_batch_ask_shape(dev):
     """K1 at (256, 1024, 1024): 1.07 GB written by one launch, within
-    4e-6 max|K| of the float64 plain version on four rows."""
+    4e-6 max|K| of the float64 plain version on four rows (K1 itself:
+    the wrapper sends this shape to K4)."""
     spec, (thetas, X, alpha) = _batch_ask_grams(dev, 256)
     before = gram.fused_masked_gram_batch.launches
-    K = gram.fused_masked_gram_batch(spec, thetas, X, alpha, 1000)
+    K = gram._k1_gram_batch(spec, thetas, X, alpha, 1000)
     assert gram.fused_masked_gram_batch.launches == before + 1
     rows = [0, 85, 170, 255]
     ref = gram.fused_masked_gram_plain(spec, thetas[rows].double(), X.double(), alpha.double(), 1000)
