@@ -255,30 +255,69 @@ class PVRS(FullGPAcquisition):
         return vals.cpu().numpy()
 
 
-def _per_draw_body(rows, data, X, kernel, white_idx, n_real, n_warp=0, z=None):
-    """Per hyperposterior row: one batched gram (K1 on the device), one
-    batched factorization, and the cross-gram solve through the cached
-    block inverses where they exist. Returns the (S, m) predictive mean
-    and std, or, given standard normals ``z`` (S, m, 1), one joint draw
-    per row (S, m). With warping each row warps the training inputs and
-    ``X`` by its own warp. A non-PD draw gives NaN, which the caller's
-    finite filter drops."""
+def _draw_posteriors(rows, data, X, kernel, white_idx, n_real, n_warp):
+    """Per hyperposterior row: one batched gram (K1 on the device) and one
+    batched factorization; with warping each row warps the training
+    inputs and ``X`` by its own warp. Returns (data, posterior, block
+    inverses, noise-free theta, warped X)."""
     theta, d, Xq = gpc.warped_draws(rows, data, n_warp, X)
     grams = gpc.fused_marginal_grams(kernel, theta, d, n_real=n_real)
     post, invs = gpc.posterior_and_invs(kernel, theta, d, Kp=grams)
-    theta_nf = gpc.noise_free_theta(kernel, theta, white_idx)
+    return d, post, invs, gpc.noise_free_theta(kernel, theta, white_idx), Xq
+
+
+def _per_draw_body(rows, data, X, kernel, white_idx, n_real, n_warp=0, z=None):
+    """Per hyperposterior row (:func:`_draw_posteriors`), the cross-gram
+    solve through the cached block inverses where they exist. Returns the
+    (S, m) predictive mean and std, or, given standard normals ``z``
+    (S, m, 1), one joint draw per row (S, m). A non-PD draw gives NaN,
+    which the caller's finite filter drops."""
+    d, post, invs, theta_nf, Xq = _draw_posteriors(rows, data, X, kernel, white_idx, n_real,
+                                                   n_warp)
     if z is not None:
         return gpc.sample_y(kernel, theta_nf, post, d, Xq, z, invs=invs)[..., 0]
     return gpc.predict(kernel, theta_nf, post, d, Xq, return_std=True, invs=invs)
 
 
-def _fused_marginal_vals(rows, data, X, kernel, white_idx, n_real, acq, kwargs, n_warp=0, z=None):
+def _per_draw_sharded(rows, data, X, kernel, white_idx, n_real, n_warp, mesh):
+    """:func:`_per_draw_body`'s (S, m) mean and std with the candidate grid
+    split over the entries of a 1-axis ``mesh``: each distinct device
+    builds the draws' posteriors once, each entry predicts its candidates
+    (the cross-gram and its solve, the part that grows with the grid),
+    and the shards are gathered in candidate order on ``rows``' device."""
+    from .models.warping import split_warp_params, warp
+
+    posts, mus, stds = {}, [], []
+    for Xc in mesh.split(X):
+        dev = Xc.device
+        if dev not in posts:
+            r = rows.to(dev)
+            d = data._replace(**{k: getattr(data, k).to(dev)
+                                 for k in ("X", "y", "alpha_diag", "mask")})
+            posts[dev] = (r, *_draw_posteriors(r, d, None, kernel, white_idx, n_real, n_warp))
+        r, d, post, invs, theta_nf, _ = posts[dev]
+        Xq = warp(Xc, *split_warp_params(r, n_warp)[1:]) if n_warp else Xc
+        mu, std = gpc.predict(kernel, theta_nf, post, d, Xq, return_std=True, invs=invs)
+        mus.append(mu)
+        stds.append(std)
+    return (mesh.all_gather(mus, dim=-1, device=rows.device),
+            mesh.all_gather(stds, dim=-1, device=rows.device))
+
+
+def _fused_marginal_vals(rows, data, X, kernel, white_idx, n_real, acq, kwargs, n_warp=0, z=None,
+                         mesh=None):
     """(S, m) values of an uncertainty acquisition, or of a sample
-    acquisition on the draws for the normals ``z``, one row per draw."""
+    acquisition on the draws for the normals ``z``, one row per draw.
+    ``mesh`` shards an uncertainty acquisition's predictions over the
+    candidates (a sample acquisition's joint draws need the whole grid's
+    covariance, and run on the model's device)."""
     if isinstance(acq, SampleAcquisition):
         draws = _per_draw_body(rows, data, X, kernel, white_idx, n_real, n_warp, z)
         return acq(draws, **kwargs)
-    mu_s, std_s = _per_draw_body(rows, data, X, kernel, white_idx, n_real, n_warp)
+    if mesh is not None:
+        mu_s, std_s = _per_draw_sharded(rows, data, X, kernel, white_idx, n_real, n_warp, mesh)
+    else:
+        mu_s, std_s = _per_draw_body(rows, data, X, kernel, white_idx, n_real, n_warp)
     return acq(mu_s, std_s, **kwargs)
 
 
@@ -288,7 +327,7 @@ def _rng(random_state):
     return np.random.RandomState(random_state)
 
 
-def _marginal_values(X, gpr, acqs, n_samples, rs, kwargs):
+def _marginal_values(X, gpr, acqs, n_samples, rs, kwargs, mesh=None):
     """(S, m) host values of each uncertainty or sample acquisition in
     ``acqs`` (``None`` for the others) over ``n_samples`` distinct chain
     rows. Consumes ``rs`` in the JAX package's order: the rows, a seed
@@ -316,7 +355,7 @@ def _marginal_values(X, gpr, acqs, n_samples, rs, kwargs):
         else:
             out.append(None)
             continue
-        vals = _fused_marginal_vals(*args, acq, kw, gpr._n_warp(), z)
+        vals = _fused_marginal_vals(*args, acq, kw, gpr._n_warp(), z, mesh=mesh)
         out.append(vals.cpu().numpy())
     return out
 
@@ -331,7 +370,8 @@ def _finite_mean(vals, n_samples):
 
 
 @torch.no_grad()
-def evaluate_acquisitions_fused(X, gpr, acq, n_samples: int = 10, random_state=None, **kwargs):
+def evaluate_acquisitions_fused(X, gpr, acq, n_samples: int = 10, random_state=None, mesh=None,
+                                **kwargs):
     """Evaluate ONE acquisition on the candidate grid X: (1, n_candidates),
     or ``None`` for an acquisition that is neither FullGP, uncertainty
     nor sample acquisition (the caller then takes
@@ -343,6 +383,10 @@ def evaluate_acquisitions_fused(X, gpr, acq, n_samples: int = 10, random_state=N
     declines such a class). An uncertainty or sample acquisition is
     averaged over ``n_samples`` distinct chain rows, with draws that give
     non-finite values dropped.
+
+    ``mesh`` (a 1-axis :class:`~bask_tpu_torch.parallel.mesh.Mesh`)
+    splits the candidate grid of an uncertainty acquisition over its
+    entries for the predictions; the values equal the unsharded ones.
     """
     X = np.atleast_2d(np.asarray(X, dtype=float))
     rs = _rng(random_state)
@@ -356,7 +400,7 @@ def evaluate_acquisitions_fused(X, gpr, acq, n_samples: int = 10, random_state=N
         return None
     if n_samples <= 0:
         return out
-    (vals,) = _marginal_values(X, gpr, (acq,), n_samples, rs, kwargs)
+    (vals,) = _marginal_values(X, gpr, (acq,), n_samples, rs, kwargs, mesh=mesh)
     out[0] += _finite_mean(vals, n_samples)
     return out
 

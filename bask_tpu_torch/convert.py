@@ -21,7 +21,7 @@ __all__ = ["kernel_spec", "gp_data", "fitted_bayesgpr", "bayesgpr_from_jax"]
 _SETTINGS = (
     "alpha", "noise", "normalize_y", "warp_inputs", "moves", "optimizer",
     "n_restarts_optimizer", "copy_X_train", "chain_init", "ml2_subsample",
-    "ml2_objective",
+    "ml2_objective", "row_nb", "row_unroll", "row_grad_method",
 )
 
 
@@ -100,7 +100,9 @@ def fitted_bayesgpr(
     data standardizes its targets. The consensus posterior and LML are
     recomputed by the port, on ``device`` (``None``: the CUDA card).
     ``settings`` are further constructor fields (``optimizer``,
-    ``chain_init``, ``ml2_objective``, ...).
+    ``chain_init``, ``ml2_objective``, ``row_nb``, ...); a row-mode model
+    takes its port mesh as ``row_mesh`` (a JAX mesh is not carried, as
+    JAX's pickle drops it), and its consensus LML is then the sweep's.
     """
     spec = kernel_spec(kernel)
     if normalize_y is None:
@@ -134,11 +136,12 @@ def bayesgpr_from_jax(gp, device=None, dtype=torch.float64) -> BayesGPR:
     fields (kernel, alpha, noise, normalize_y, warp_inputs, moves, the fit
     options) and a copy of its random state; a fitted model also carries
     its fitted state (:func:`fitted_bayesgpr`), and the user kernel stays
-    the one a later ``fit`` starts from."""
+    the one a later ``fit`` starts from. A row-mode model's mesh is not
+    carried (assign the port's ``row_mesh`` to resume row mode)."""
     settings = {k: getattr(gp, k) for k in _SETTINGS}
     rs = np.random.RandomState()
     rs.set_state(gp.random_state.get_state())
-    if gp._post is None or gp._theta is None:
+    if gp._theta is None or gp._data is None or (gp._post is None and gp.row_mesh is None):
         return BayesGPR(
             kernel=kernel_spec(gp._user_kernel), random_state=rs,
             device=device, dtype=dtype, **settings,

@@ -38,8 +38,16 @@ frozen SciPy distribution's ``logpdf`` (lifted to torch by
 on the host through an adapter. Models pickle with their tensors as
 NumPy and come back on their device.
 
-Not ported: row-sharded mode (``row_mesh``) and the tabulated priors of
-``host_prior_mode="interp"``.
+Meshes (:mod:`bask_tpu_torch.parallel.mesh`): ``sample(mesh=)`` and
+``fit(mesh=)`` shard the walker ensemble over a 1-axis mesh (the ensemble
+rounded up to a multiple of twice the mesh size), with results equal to
+the unsharded chain's. ``BayesGPR(row_mesh=)`` is the huge-n mode: every
+factorization (chain, ML-II, consensus LML, predictions, draws) is
+row-sharded over the mesh by :mod:`bask_tpu_torch.ops.dist_chol`, and no
+(n_pad, n_pad) gram or factor is ever stored; a 2-axis
+(walkers, rows) row mesh also splits the walkers over its first axis.
+
+Not ported: the tabulated priors of ``host_prior_mode="interp"``.
 """
 
 from __future__ import annotations
@@ -106,24 +114,43 @@ def _eval_priors(priors, theta):
     return lp
 
 
-def _make_log_prob_batch(kernel, priors, data, n_real, warp_prior=None, n_warp=0):
+def _make_log_prob_batch(kernel, priors, data, n_real, warp_prior=None, n_warp=0,
+                         mesh=None, row_cfg=None):
     """Batched (W, D) -> (W,) log-posterior for the ensemble sampler.
 
     With ``n_warp`` > 0 the last ``2 * n_warp`` entries of each row are
     warp log-parameters: ``warp_prior(log_alphas, log_betas)`` scores them
-    ((W, d) each -> (W,)) and the training inputs are warped per walker."""
+    ((W, d) each -> (W,)) and the training inputs are warped per walker.
+    ``mesh`` shards the walkers' LMLs (``batched_lml(mesh=)``).
+    ``row_cfg`` = ``(row_mesh, nb, unroll)`` is the huge-n mode: each
+    walker's LML comes from the row-sharded sweep
+    (:mod:`bask_tpu_torch.ops.dist_chol`), the walkers split over the first
+    axis of a 2-axis row mesh, and a warped walker warps the shared X
+    inside its own sweep (no (W, n, d) batch). Exclusive with ``mesh``."""
 
     def log_prob_batch(xs):
         if n_warp:
             theta_gp, la, lb = wp.split_warp_params(xs, n_warp)
-            X = wp.warp(data.X, la, lb)
             lp = warp_prior(la, lb)
         else:
-            theta_gp, X, lp = xs, data.X, 0.0
+            theta_gp, lp = xs, 0.0
         lp = lp + _eval_priors(priors, theta_gp)
-        lml = batched_lml(
-            kernel, theta_gp, X, data.y, data.alpha_diag, data.mask, n_real=n_real
-        )
+        if row_cfg is not None:
+            from ..ops.dist_chol import row_sharded_lml_batch, walker_row_sharded_lml
+
+            row_mesh, row_nb, row_unroll = row_cfg
+            lml_fn = (walker_row_sharded_lml if len(row_mesh.axis_names) == 2
+                      else row_sharded_lml_batch)
+            lml = lml_fn(
+                kernel, xs if n_warp else theta_gp, data.X, data.y, data.alpha_diag,
+                data.mask, row_mesh, nb=row_nb, unroll=row_unroll, n_warp=n_warp,
+            )
+        else:
+            X = wp.warp(data.X, la, lb) if n_warp else data.X
+            lml = batched_lml(
+                kernel, theta_gp, X, data.y, data.alpha_diag, data.mask, n_real=n_real,
+                mesh=mesh,
+            )
         total = lp + lml
         return torch.where(torch.isfinite(total), total, -math.inf)
 
@@ -196,7 +223,31 @@ _LBFGS_HISTORY = 10
 _LBFGS_STEPS = 10
 
 
-def _ml2_device(theta0s, data, lb, ub, kernel, maxiter=60):
+def _row_neg_lml_value_grad(kernel, row_cfg, grad_method, data):
+    """Row mode's ML-II objective: ``f(thetas (N, D)) -> (-LML (N,),
+    -grad (N, D))``, each row by :func:`~bask_tpu_torch.ops.dist_chol.
+    row_sharded_lml_value_grad` in turn (never an (n_pad, n_pad) factor);
+    the counterpart of JAX's custom-VJP ``_row_lml_rev``."""
+    from ..ops.dist_chol import row_sharded_lml_value_grad
+
+    mesh, nb, unroll = row_cfg
+
+    def f(thetas):
+        vs, gs = [], []
+        for t in thetas:
+            v, g = row_sharded_lml_value_grad(
+                kernel, t, data.X, data.y, data.alpha_diag, data.mask, mesh,
+                nb=nb, unroll=unroll, method=grad_method,
+            )
+            vs.append(-v)
+            gs.append(-g)
+        return torch.stack(vs), torch.stack(gs)
+
+    return f
+
+
+def _ml2_device(theta0s, data, lb, ub, kernel, maxiter=60, row_cfg=None,
+                grad_method="adjoint"):
     """The ML-II warm start as a batched L-BFGS over all starts at once,
     on the data's device, with no host round trip inside.
 
@@ -207,7 +258,10 @@ def _ml2_device(theta0s, data, lb, ub, kernel, maxiter=60):
     step lengths along every start's direction in one batch and keeps the
     longest that meets Armijo's condition; a start where none does stays
     put and drops its curvature pairs. Runs ``maxiter`` iterations and
-    returns the best start's theta (a (n_theta,) tensor)."""
+    returns the best start's theta (a (n_theta,) tensor). With ``row_cfg``
+    the values and gradients come from the row-sharded sweep
+    (``grad_method``), one theta at a time, as JAX's ``_ml2_device_row``
+    maps its restarts."""
     B, D = theta0s.shape
     dt, dev = theta0s.dtype, theta0s.device
     width = ub - lb
@@ -216,6 +270,12 @@ def _ml2_device(theta0s, data, lb, ub, kernel, maxiter=60):
         return lb + width * torch.sigmoid(u)
 
     def value_grad(u):
+        if row_cfg is not None:
+            v, g_t = _row_neg_lml_value_grad(kernel, row_cfg, grad_method, data)(to_t(u))
+            sig = torch.sigmoid(u)
+            g = g_t * width * sig * (1.0 - sig)
+            ok = torch.isfinite(v)
+            return torch.where(ok, v, 1e25), torch.where(ok[:, None] & torch.isfinite(g), g, 0.0)
         u = u.detach().requires_grad_(True)
         with torch.enable_grad():
             v = _neg_lml_plain(kernel, to_t(u), data)
@@ -409,9 +469,13 @@ class BayesGPR:
     uniformly in the bounds, ``ml2_objective`` (``"lml"`` or ``"map"``),
     ``ml2_subsample`` (optimize on that many random points);
     ``chain_init`` (``"ball"`` or ``"laplace"``) places a cold ensemble.
-    ``copy_X_train`` copies the training arrays. ``host_prior_mode`` and
-    the row-mode arguments (``row_mesh``, ``row_nb``, ``row_unroll``,
-    ``row_grad_method``) are accepted at their defaults only.
+    ``copy_X_train`` copies the training arrays. ``host_prior_mode`` is
+    accepted at its default only. ``row_mesh`` (a 1-axis rows or 2-axis
+    (walkers, rows) :class:`~bask_tpu_torch.parallel.mesh.Mesh`) turns on
+    the row-sharded huge-n mode with panel width ``row_nb``, the
+    trapezoid-only sweep ``row_unroll`` and the ML-II gradient
+    ``row_grad_method`` (``"adjoint"`` or ``"jvp"``); a pickle drops the
+    mesh (assign ``row_mesh`` again after loading).
 
     ``device`` and ``dtype`` place the training data, the chain and the
     posterior; ``device=None`` is the CUDA card. Host-side state
@@ -456,11 +520,16 @@ class BayesGPR:
                 "PyTorch (ROADMAP.md queue 1, item 9: tunnel-only code); the "
                 "port runs NumPy priors exactly on the host ('callback')."
             )
-        if (row_mesh, row_nb, row_unroll, row_grad_method) != (None, 256, False, "adjoint"):
-            raise NotImplementedError(
-                "row-sharded mode (row_mesh, row_nb, row_unroll, "
-                "row_grad_method) is not ported to PyTorch yet (ROADMAP.md "
-                "queue 1, item 8: multi-GPU); leave them at their defaults."
+        if row_mesh is not None and len(row_mesh.axis_names) not in (1, 2):
+            raise ValueError(
+                "row_mesh must have one (rows) or two (walkers, rows) "
+                f"axes, got {row_mesh.axis_names}"
+            )
+        if row_grad_method not in ("adjoint", "jvp"):
+            raise ValueError(
+                "row_grad_method must be 'adjoint' (D-independent cost, "
+                "~4-5 gram strips of peak memory) or 'jvp' (D sweeps, "
+                f"leanest ~2-strip memory), got {row_grad_method!r}"
             )
         if chain_init not in ("ball", "laplace"):
             raise ValueError(f"chain_init must be 'ball' or 'laplace', got {chain_init!r}")
@@ -480,6 +549,10 @@ class BayesGPR:
         self.chain_init = chain_init
         self.ml2_subsample = None if ml2_subsample is None else int(ml2_subsample)
         self.ml2_objective = ml2_objective
+        self.row_mesh = row_mesh
+        self.row_nb = int(row_nb)
+        self.row_unroll = bool(row_unroll)
+        self.row_grad_method = row_grad_method
         self.device = torch.device("cuda" if device is None else device)
         self.dtype = dtype
         if isinstance(random_state, np.random.RandomState):
@@ -516,8 +589,10 @@ class BayesGPR:
     def __getstate__(self):
         """Tensors go to the pickle as NumPy (a pickle made on the card
         loads without one), and resolved priors are dropped (they are
-        derived again)."""
+        derived again). A row mesh holds devices (and maybe a process
+        group) and is dropped too: reattach it by assigning ``row_mesh``."""
         state = self.__dict__.copy()
+        state["row_mesh"] = None
         for name in ("_data", "_post_data", "_post"):
             if state.get(name) is not None:
                 state[name] = _to_numpy(state[name])
@@ -533,6 +608,8 @@ class BayesGPR:
         for name, default in (
             ("optimizer", "lbfgs"), ("n_restarts_optimizer", 0), ("copy_X_train", True),
             ("chain_init", "ball"), ("ml2_subsample", None), ("ml2_objective", "lml"),
+            ("row_mesh", None), ("row_nb", 256), ("row_unroll", False),
+            ("row_grad_method", "adjoint"),
         ):
             state.setdefault(name, default)
         state["_prior_cache"] = OrderedDict()
@@ -685,9 +762,36 @@ class BayesGPR:
         params = self._warp_params()
         return X if params is None else wp.warp(X, *params)
 
+    def _row_cfg(self):
+        """``(row_mesh, row_nb, row_unroll)``, or None outside row mode (or
+        with the mesh detached by a pickle)."""
+        if self.row_mesh is None:
+            return None
+        return (self.row_mesh, self.row_nb, self.row_unroll)
+
+    def _row_lml(self, theta, warp=None):
+        """Row-sharded LML at a kernel ``theta`` tensor on the unwarped
+        data, warped inside by ``warp`` = (log_alphas, log_betas)."""
+        from ..ops.dist_chol import row_sharded_lml
+
+        X = self._data.X if warp is None else wp.warp(self._data.X, *warp)
+        d = self._data
+        return row_sharded_lml(self._spec, theta, X, d.y, d.alpha_diag, d.mask,
+                               self.row_mesh, nb=self.row_nb, unroll=self.row_unroll)
+
     def _refresh_posterior(self, with_lml: bool = True):
-        """Consensus refresh: warp -> robust factorization -> LML."""
+        """Consensus refresh: warp -> robust factorization -> LML. In row
+        mode no factor is kept (predictions re-run the sweep) and the
+        consensus LML is one sweep."""
         if self._theta is None or self._data is None:
+            return
+        if self.row_mesh is not None:
+            self._post = None
+            self._post_data = self._data
+            self._consensus_lml_ = (
+                self._row_lml(self._tensor(self._theta), self._warp_params())
+                if with_lml else None
+            )
             return
         data = self._data._replace(X=self._warp_tensor(self._data.X))
         theta = self._tensor(self._theta)
@@ -708,11 +812,17 @@ class BayesGPR:
         (or, with ``ml2_objective="map"``, the negative log posterior under
         the guessed priors) with value and gradient from autograd through
         the plain factorization, or ``optimizer="lbfgs-device"``. The
-        result only seeds the chain, so iterations are capped at 60."""
+        result only seeds the chain, so iterations are capped at 60. In
+        row mode the value and gradient come from the row-sharded sweep
+        (``row_grad_method``), except on a subsample, which takes the
+        dense path, and ``"map"`` falls back to the bare LML with a
+        warning, as in the JAX package."""
         kernel, data = self._spec, self._data
         bounds = kernel.bounds
+        row_cfg = self._row_cfg()
         n = self._X_orig.shape[0]
         if self.ml2_subsample is not None and n > self.ml2_subsample:
+            row_cfg = None
             idx = np.sort(self.random_state.choice(n, size=self.ml2_subsample, replace=False))
             noise_rows = self._noise_rows()
             data = self._build_padded_data(
@@ -720,6 +830,15 @@ class BayesGPR:
                 None if noise_rows is None else noise_rows[idx],
             )
         objective = self.ml2_objective
+        if objective == "map" and row_cfg is not None:
+            warnings.warn(
+                "ml2_objective='map' runs on the dense warm-start path "
+                "(its value+grad program materializes the padded gram); "
+                "set ml2_subsample to use it in row mode — falling back "
+                "to the bare-LML objective for this fit.",
+                UserWarning,
+            )
+            objective = "lml"
         # the bare LML is the log posterior under no priors
         priors = self._resolve_priors(None) if objective == "map" else ()
         starts = [kernel.theta0]
@@ -736,7 +855,8 @@ class BayesGPR:
             if np.isfinite(bounds).all() and (bounds[:, 1] > bounds[:, 0]).all():
                 best = _ml2_device(
                     self._tensor(np.stack(starts)), data, self._tensor(bounds[:, 0]),
-                    self._tensor(bounds[:, 1]), kernel,
+                    self._tensor(bounds[:, 1]), kernel, row_cfg=row_cfg,
+                    grad_method=self.row_grad_method,
                 )
                 return best.cpu().double().numpy()
             # the sigmoid reparameterization needs finite, non-degenerate
@@ -750,8 +870,15 @@ class BayesGPR:
 
         from scipy.optimize import minimize
 
+        row_vg = (None if row_cfg is None
+                  else _row_neg_lml_value_grad(kernel, row_cfg, self.row_grad_method, data))
+
         def obj(t):
-            v, g = _log_post_value_grad(data, self._tensor(t), kernel, priors, 0)
+            if row_vg is not None:
+                v, g = row_vg(self._tensor(t)[None, :])
+                v, g = float(v[0]), g[0].cpu().double().numpy()
+            else:
+                v, g = _log_post_value_grad(data, self._tensor(t), kernel, priors, 0)
             if not np.isfinite(v):
                 return 1e25, np.zeros_like(t)
             return v, g
@@ -922,6 +1049,7 @@ class BayesGPR:
         warp_priors=None,
         position=None,
         add: bool = False,
+        mesh=None,
         warn_rhat="default",
         moves=None,
         until_rhat: Optional[float] = None,
@@ -945,6 +1073,14 @@ class BayesGPR:
         half is at most ``until_rhat``, or ``max_extensions`` legs were
         added. ``progress`` shows a progress bar over each run's steps
         (a no-op where ``tqdm`` is missing); the chain is the same.
+
+        ``mesh``: a 1-axis :class:`~bask_tpu_torch.parallel.mesh.Mesh`; each
+        half-ensemble's LMLs are sharded over it (``batched_lml(mesh=)``),
+        with the walker count rounded up to a multiple of twice its size
+        (100 -> 112 on 8 entries). The chain equals the unsharded one. A
+        model built with ``row_mesh=`` row-shards every walker's
+        factorization instead (a 2-axis row mesh rounds the walkers to
+        twice its first axis), and ``mesh=`` is then refused.
         """
         self.until_rhat_result_ = None
         if isinstance(warn_rhat, str):  # "default"
@@ -952,7 +1088,7 @@ class BayesGPR:
         common = dict(
             n_thin=n_thin,
             n_walkers_per_thread=n_walkers_per_thread, progress=progress, priors=priors,
-            warp_priors=warp_priors, moves=moves, warn_rhat=None, **kwargs,
+            warp_priors=warp_priors, moves=moves, warn_rhat=None, mesh=mesh, **kwargs,
         )
         if until_rhat is not None:
             self.sample(
@@ -1024,6 +1160,20 @@ class BayesGPR:
         n_warp = self._n_warp()
         n_dim = self._spec.n_theta + 2 * n_warp
         n_walkers = max(2, n_walkers_per_thread + n_walkers_per_thread % 2)
+        row_cfg = self._row_cfg()
+        if row_cfg is not None and mesh is not None:
+            raise ValueError(
+                "mesh= and row_mesh are mutually exclusive: use a "
+                "two-axis row_mesh=(walkers, rows) to combine walker "
+                "data-parallelism with row-sharded factorizations."
+            )
+        if mesh is not None:
+            # each half-ensemble shards evenly: a multiple of 2 x the mesh size
+            m = 2 * int(np.prod(list(mesh.shape.values())))
+            n_walkers = -(-n_walkers // m) * m
+        if row_cfg is not None and len(self.row_mesh.axis_names) == 2:
+            m = 2 * int(self.row_mesh.shape[self.row_mesh.axis_names[0]])
+            n_walkers = -(-n_walkers // m) * m
         if position is not None:
             n_walkers = int(np.asarray(position).shape[0])
         n_steps = int(math.ceil(n_desired_samples / n_walkers)) + n_burnin
@@ -1051,7 +1201,9 @@ class BayesGPR:
             if ci not in ("ball", "laplace"):
                 raise ValueError(f"chain_init must be 'ball' or 'laplace', got {ci!r}")
             pos = None
-            if ci == "laplace":
+            # row mode keeps the ball: the Laplace Hessian is a dense
+            # (n, n) factorization, what row mode exists to avoid
+            if ci == "laplace" and row_cfg is None:
                 pos = self._laplace_positions(theta, n_walkers, priors, n_warp)
             if pos is None:
                 pos = theta[None, :] + 1e-2 * self.random_state.randn(n_walkers, n_dim)
@@ -1063,7 +1215,8 @@ class BayesGPR:
             moves = _MOVE_ALIASES["demix"] if w >= 6 else (("de", 1.0),) if w >= 4 else None
 
         log_prob = _make_log_prob_batch(
-            self._spec, priors, self._data, len(self._y_orig), warp_prior, n_warp
+            self._spec, priors, self._data, len(self._y_orig), warp_prior, n_warp,
+            mesh=mesh, row_cfg=row_cfg,
         )
         chain_dev, final = run_ensemble(
             log_prob, self._tensor(pos), seed, n_steps,
@@ -1209,7 +1362,32 @@ class BayesGPR:
         return theta
 
     def _is_fitted(self) -> bool:
+        if self.row_mesh is not None:
+            # row mode keeps no factor: fitted means a consensus theta over data
+            return self._theta is not None and self._data is not None
         return self._post is not None and self._theta is not None
+
+    def _row_predict(self, theta, theta_diag, Xq, warp=None, return_cov=False,
+                     with_grad=False):
+        """Row-sharded predictions at ``Xq`` (one sweep): ``(mean, std or
+        cov[, mean_grad, std_grad])``. ``warp`` = (log_alphas, log_betas)
+        warps the training inputs and the queries; the gradients are then
+        taken back through the warp's diagonal Jacobian."""
+        from ..ops.dist_chol import row_sharded_predict
+
+        d = self._data
+        X, Xw = d.X, Xq
+        if warp is not None:
+            X, Xw = wp.warp(X, *warp), wp.warp(Xq, *warp)
+        out = row_sharded_predict(
+            self._spec, theta, X, d.y, d.alpha_diag, d.mask, Xw, self.row_mesh,
+            nb=self.row_nb, y_mean=d.y_mean, y_std=d.y_std, theta_diag=theta_diag,
+            return_cov=return_cov, return_grad=with_grad, unroll=self.row_unroll,
+        )
+        if warp is not None and with_grad:
+            jac = wp.warp_grad(Xq, *warp)
+            out = (out[0], out[1], out[2] * jac, out[3] * jac)
+        return out
 
     def _prior_kernel_theta(self):
         """(kernel, theta0) of the GP prior for unfitted predictions: the
@@ -1273,6 +1451,25 @@ class BayesGPR:
             )
         if self.warp_inputs:
             validate_zeroone(X)
+        if self.row_mesh is not None:
+            with_grad = return_mean_grad or return_std_grad
+            if with_grad and return_cov:
+                raise ValueError(
+                    "return_cov cannot be combined with prediction "
+                    "gradients in row-sharded mode"
+                )
+            out = self._row_predict(
+                self._tensor(self._theta), self._theta_diag(), self._tensor(X),
+                self._warp_params(), return_cov=return_cov, with_grad=with_grad,
+            )
+            results = [out[0].cpu().numpy()]
+            if return_std or return_cov:
+                results.append(out[1].cpu().numpy())
+            if return_mean_grad:
+                results.append(out[2].cpu().numpy())
+            if return_std_grad:
+                results.append(out[3].cpu().numpy())
+            return results[0] if len(results) == 1 else tuple(results)
         out = gpc.predict(
             self._spec, self._theta_diag(), self._post, self._post_data,
             self._warp_tensor(self._tensor(X)), return_std=return_std,
@@ -1323,6 +1520,8 @@ class BayesGPR:
             z = self._normals(seed, (Xq.shape[0], n_samples))
             return gpc.eigh_draws(torch.zeros_like(cov[:, 0]), cov, z).cpu().numpy()
         widx = self.white_index_
+        if self.row_mesh is not None:
+            return self._row_sample_y(Xq, sample_mean, noise, n_samples, seed)
         if sample_mean:
             theta = self._tensor(self._theta)
             td = theta if noise else gpc.noise_free_theta(self._spec, theta, widx)
@@ -1341,6 +1540,46 @@ class BayesGPR:
         z = self._normals(seed, (n_samples, Xq.shape[-2], 1))
         draws = gpc.sample_y(self._spec, td, post, data, Xq, z, invs=invs)
         return draws[..., 0].T.cpu().numpy()
+
+    def _row_sample_y(self, Xq, sample_mean, noise, n_samples, seed):
+        """Row mode's draws: the consensus GP's joint draws from one sweep
+        (``sample_mean``), else one sweep per draw, each with a chain row
+        (and its own warp), rows picked by a NumPy RandomState of the seed
+        as in the JAX package. The normals are the dense path's (from the
+        seed's torch generator, in its layout), so a draw equals the dense
+        model's draw for the same seed."""
+        from ..ops.dist_chol import row_sharded_sample_y
+
+        widx, d = self.white_index_, self._data
+
+        def draws(theta, warp, zc):
+            td = theta if noise else gpc.noise_free_theta(self._spec, theta, widx)
+            X, Xw = d.X, Xq
+            if warp is not None:
+                X, Xw = wp.warp(X, *warp), wp.warp(Xq, *warp)
+            return row_sharded_sample_y(
+                self._spec, theta, X, d.y, d.alpha_diag, d.mask, Xw, zc, self.row_mesh,
+                n_samples=zc.shape[1], nb=self.row_nb, y_mean=d.y_mean, y_std=d.y_std,
+                theta_diag=td,
+            )
+
+        if sample_mean:
+            z = self._normals(seed, (Xq.shape[0], n_samples))
+            return draws(self._tensor(self._theta), self._warp_params(), z).cpu().numpy()
+        z = self._normals(seed, (n_samples, Xq.shape[0], 1))
+        n_warp = self._n_warp()
+        rs = np.random.RandomState(seed)
+        idx = rs.choice(len(self.chain_), size=n_samples, replace=True)
+        cols = []
+        for j, i in enumerate(idx):
+            row = self._tensor(self.chain_[i])
+            if n_warp:
+                th, la, lb = wp.split_warp_params(row, n_warp)
+                warp = (la, lb)
+            else:
+                th, warp = row, None
+            cols.append(draws(th, warp, z[j])[:, 0])
+        return torch.stack(cols, dim=1).cpu().numpy()
 
     def _fused_spec(self):
         from ..ops.gram import match_fusable
@@ -1423,6 +1662,8 @@ class BayesGPR:
             return self.log_marginal_likelihood_value_
         data = self._post_data if self._post_data is not None else self._data
         with torch.no_grad():
+            if self.row_mesh is not None:
+                return float(self._row_lml(self._tensor(theta), self._warp_params()))
             return float(gpc.log_marginal_likelihood(self._spec, self._tensor(theta), data))
 
     # -- public warper API (reference bask/bayesgpr.py:249-316) ------------

@@ -67,16 +67,17 @@ __all__ = [
 _BASE = 128  # K3's largest block: one launch per 128-wide panel
 
 
-def _chol_inv_recursive(A):
-    """(L, L^-1) of (..., n, n), built together."""
+def _chol_inv_recursive(A, base=chol_inv_base):
+    """(L, L^-1) of (..., n, n), built together; ``base`` factors the
+    blocks of at most ``_BASE`` (K3, or its plain version)."""
     n = A.shape[-1]
     if n <= _BASE:
-        return chol_inv_base(A)
+        return base(A)
     h = n // 2
-    L11, inv11 = _chol_inv_recursive(A[..., :h, :h])
+    L11, inv11 = _chol_inv_recursive(A[..., :h, :h], base)
     L21 = A[..., h:, :h] @ inv11.transpose(-1, -2)
     S = A[..., h:, h:] - L21 @ L21.transpose(-1, -2)
-    L22, inv22 = _chol_inv_recursive(S)
+    L22, inv22 = _chol_inv_recursive(S, base)
     zeros = torch.zeros_like(A[..., :h, h:])
     L = torch.cat(
         [torch.cat([L11, zeros], dim=-1), torch.cat([L21, L22], dim=-1)],

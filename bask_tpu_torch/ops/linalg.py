@@ -121,7 +121,7 @@ def _lml_batch_direct(kernel, spec, thetas, X, y, alpha_diag, mask, n_real):
     return masked_lml(kernel, thetas, X, y, alpha_diag, mask)
 
 
-def batched_lml(kernel, thetas, X, y, alpha_diag, mask, n_real=None):
+def batched_lml(kernel, thetas, X, y, alpha_diag, mask, mesh=None, n_real=None):
     """LML for a batch of thetas: (W, n_theta) -> (W,).
 
     On a CUDA float32 problem whose kernel matches the fused family and
@@ -134,7 +134,16 @@ def batched_lml(kernel, thetas, X, y, alpha_diag, mask, n_real=None):
 
     Batches beyond ``LML_MAX_BATCH_BYTES`` of grams run in equal walker
     chunks; each walker's result is independent of the chunking.
+
+    ``mesh``: a 1-axis :class:`~bask_tpu_torch.parallel.mesh.Mesh`. Each
+    entry's shard of the walkers (and of a per-walker X) runs this whole
+    pipeline (gram, factorization, LML) on its device, and the (W,) result
+    comes back in walker order on the device of ``thetas``; the budget
+    above applies per shard. No walker's result depends on another's, so
+    the sharded result equals the unsharded one (JAX's ``shard_map``).
     """
+    if mesh is not None:
+        return _batched_lml_sharded(kernel, thetas, X, y, alpha_diag, mask, n_real, mesh)
     n_pad = X.shape[-2]
     spec = fused_spec_for(kernel, X)
     if spec is not None and n_real is None:
@@ -151,6 +160,24 @@ def batched_lml(kernel, thetas, X, y, alpha_diag, mask, n_real=None):
             )
         )
     return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def _batched_lml_sharded(kernel, thetas, X, y, alpha_diag, mask, n_real, mesh):
+    if len(mesh.axis_names) != 1:
+        raise ValueError("batched_lml(mesh=) takes a 1-axis mesh")
+    if n_real is None:
+        n_real = int(mask.sum())
+    t_parts = mesh.split(thetas)
+    # a per-walker X is split with the walkers; a shared X is replicated
+    x_parts = mesh.split(X) if X.ndim == 3 else [X] * len(t_parts)
+    shared = {}  # the replicated inputs, once per distinct device
+    outs = []
+    for t, Xs in zip(t_parts, x_parts):
+        dev = t.device
+        if dev not in shared:
+            shared[dev] = [a.to(dev) for a in (y, alpha_diag, mask)]
+        outs.append(batched_lml(kernel, t, Xs.to(dev), *shared[dev], n_real=n_real))
+    return mesh.all_gather(outs, device=thetas.device)
 
 
 def augmented_quadform(L, l_cand, d_cand, A_sol, b):

@@ -65,9 +65,12 @@ class Optimizer:
     ``acq_polish_starts`` grid points at rate ``acq_polish_lr``; where the
     acquisition or the space gives no differentiable surface the grid
     argmax is used, with a warning once. ``device`` and ``dtype`` place
-    the GP; ``device=None`` is the CUDA card. ``mesh`` (walker sharding
-    over several devices) is not ported and raises. Unknown kwargs are
-    tolerated.
+    the GP; ``device=None`` is the CUDA card. ``mesh``: a 1-axis
+    :class:`~bask_tpu_torch.parallel.mesh.Mesh`; every GP refit shards its
+    walker ensemble over it (``BayesGPR.sample(mesh=)``, the same chain as
+    unsharded), and the marginal acquisitions predict over the candidate
+    grid sharded over it (``evaluate_acquisitions_fused(mesh=)``). Unknown
+    kwargs are tolerated.
     """
 
     def __init__(
@@ -91,11 +94,6 @@ class Optimizer:
         dtype=torch.float32,
         **kwargs,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Optimizer(mesh=...) walker sharding is not ported to PyTorch "
-                "yet (ROADMAP.md queue 1, item 8: multi-GPU); pass mesh=None."
-            )
         if isinstance(random_state, np.random.RandomState):
             self.rng = random_state
         else:
@@ -113,6 +111,16 @@ class Optimizer:
         elif init_strategy == "sb":
             self._init_rng = np.random.RandomState(self.rng.randint(2**31))
         self.n_points = n_points
+        gp_kwargs = dict(gp_kwargs or {})
+        if gp_kwargs.get("row_mesh") is not None:
+            # the acquisition marginalizes per-draw (W, n, n) posteriors,
+            # which row mode exists to avoid, and a BO loop's n never
+            # reaches the beyond-one-card regime: shard walkers instead
+            raise ValueError(
+                "row_mesh is a BayesGPR regression-scale feature and is "
+                "not supported inside Optimizer; use Optimizer(mesh=...) "
+                "walker sharding for multi-device BO loops."
+            )
         if gp_kernel is None:
             gp_kernel = construct_default_kernel(
                 list(range(self.space.transformed_n_dims))
@@ -122,9 +130,10 @@ class Optimizer:
             random_state=self.rng.randint(0, np.iinfo(np.int32).max),
             device=device,
             dtype=dtype,
-            **dict(gp_kwargs or {}),
+            **gp_kwargs,
         )
         self.gp_priors = gp_priors
+        self.mesh = mesh
         self.gp_sample_kwargs = dict(gp_sample_kwargs or {})
         self.acq_polish = int(acq_polish)
         self.acq_polish_starts = int(acq_polish_starts)
@@ -300,6 +309,7 @@ class Optimizer:
                     n_desired_samples=gp_samples,
                     n_burnin=gp_burnin,
                     progress=progress,
+                    mesh=self.mesh,
                 )
                 common.update(self.gp_sample_kwargs)
                 if self.gp.pos_ is None or replace:
@@ -331,6 +341,7 @@ class Optimizer:
                 acq=self.acq_func,
                 n_samples=n_samples,
                 random_state=acq_seed,
+                mesh=self.mesh,
                 **self.acq_func_kwargs,
             )
             if acq_out is None:

@@ -80,7 +80,29 @@ Phases, each printing one result line:
    ``scripts/bench_gram_wb.run`` (2 and 5 walkers per block). It runs
    after phase 4b, with the other kernel phases.
 
-The ``launches`` of the kernel table sum phases 7-11, each counted from 0
+12. meshes (``bask_tpu_torch.parallel``) and the row-sharded Cholesky
+   (``ops/dist_chol.py``) on the one card, whose entries a mesh repeats:
+   (a) ``batched_lml(mesh=)`` over [cuda:0] x P, P = 1, 2, 4, at the
+   north-star shape (100, 512, d = 15) and over [cuda:0] x 2 at the batch
+   ask's (256, 1024), each shard's gram from K1 (K4 at (128, 1024, 15)),
+   against the unsharded call and float64, with the launches per shard;
+   one warm tell of ``Optimizer(mesh=...)`` against the unsharded one;
+   (b) the row-sharded LML at n = 32,768, d = 15, nb 256 on 4 strips
+   (the sweep's diagonal blocks on K3), ``unroll`` both ways, against a
+   float64 dense factor, bounded by twice the float32 ``cholesky_ex``
+   error with twice the float32 spacing at the LML as its floor, and
+   against the dense float32 port path (K1's gram) within the same
+   limit; a sweep with TF32 matmuls must miss it; a non-PD theta (-inf); times, peak
+   memory, K3 launches per sweep; the same LML through a world-size-1
+   NCCL process group, bit-equal to the in-process mesh; K3 at the row
+   path's block against ``cholesky_ex`` + ``solve_triangular``; (c)
+   row-mode ``BayesGPR`` on a (2 walkers x 2 rows) mesh at n = 8,192:
+   the adjoint, jvp and dense float32 gradients against float64, an ML-II
+   warm start and a 16-walker x 6-step chain, ``predict`` at 1,000
+   queries and 4 draws from given normals against the dense models, each
+   within ``RM_ERR_MULTIPLE`` times the dense float32 model's own error.
+
+The ``launches`` of the kernel table sum phases 7-12, each counted from 0
 just before the phase drives its path and read just after it.
 
 No failure is caught: a phase that fails ends the run with a non-zero
@@ -1646,6 +1668,478 @@ def phase_wb_gram(dev):
     return row, launches
 
 
+
+# -- phase 12: meshes, the row-sharded Cholesky, the multi-process runtime --
+
+# the row-sharded LML at full width: n = 32,768 in 15-D, nb 256, 4 strips
+ROW_OBS, ROW_STRIPS, ROW_NB = 32768, 4, 256
+# row-mode BayesGPR on a (2 walkers x 2 rows) mesh of the card
+RM_OBS, RM_WALKERS, RM_STEPS, RM_QUERIES, RM_DRAWS = 8192, 16, 6, 1000, 4
+# the multiple of the dense float32 path's own error against float64 that
+# the row path may reach in (c), fixed before the first run (PERF.md section 6)
+RM_ERR_MULTIPLE = 4.0
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _row_data(n, seed, dev, dtype):
+    """(X, y, alpha, mask) of n points in [0, 1]^15 (a noisy bowl, y
+    standardized), no padding."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    X = rng.uniform(size=(n, N_DIM))
+    y = np.sum((X - 0.5) ** 2, axis=1) + 0.05 * rng.randn(n)
+    y = (y - y.mean()) / y.std()
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    return t(X), t(y), t(np.full(n, 1e-6)), torch.ones(n, dtype=torch.bool, device=dev)
+
+
+def _strip_gram(kernel, theta, X, alpha, mask, rows=4096):
+    """The (n, n) masked gram assembled from row strips of the sweep's own
+    strip builder (never more than one strip of temporaries)."""
+    import torch
+
+    from bask_tpu_torch.ops import dist_chol
+
+    n = X.shape[0]
+    K = torch.empty((n, n), dtype=X.dtype, device=X.device)
+    for r0 in range(0, n, rows):
+        s = slice(r0, r0 + rows)
+        K[s] = dist_chol._gram_strip(kernel, theta, X, X[s], alpha[s], mask, mask[s], r0)
+    return K
+
+
+def _chol_lml(K, y):
+    """LML through cholesky_ex and one triangular solve (-inf where not PD)."""
+    import torch
+
+    L, info = torch.linalg.cholesky_ex(K)
+    if int(info) > 0:
+        return -math.inf
+    w = torch.linalg.solve_triangular(L, y[:, None], upper=False)[:, 0]
+    n = K.shape[0]
+    return float(-0.5 * (w * w).sum() - torch.log(L.diagonal()).sum()
+                 - 0.5 * n * math.log(2 * math.pi))
+
+
+def phase12_walkers(dev):
+    """(a) batched_lml(mesh=) over [cuda:0] x P against the unsharded call at
+    the north-star shape and at the batch ask's (K4 per shard); launch
+    counts per shard; one warm tell of Optimizer(mesh=) against the
+    unsharded one."""
+    import torch
+
+    from bask_tpu_torch import Optimizer
+    from bask_tpu_torch.ops import kernels as bk
+    from bask_tpu_torch.ops import linalg
+    from bask_tpu_torch.parallel.mesh import Mesh
+
+    out, checks = {}, {}
+
+    def args_of(X, y, n_obs, n_pad, thetas, dtype):
+        Xp = np.full((n_pad, N_DIM), 0.5)
+        Xp[:n_obs] = X
+        yp = np.zeros(n_pad)
+        yp[:n_obs] = y
+        t = [torch.as_tensor(a, dtype=dtype, device=dev)
+             for a in (thetas, Xp, yp, np.full(n_pad, 1e-6))]
+        return t + [torch.as_tensor(np.arange(n_pad) < n_obs, device=dev)]
+
+    kernel = bench_kernel(bk)
+    X, y = bench_dataset()
+    thetas = 0.05 * np.random.RandomState(1).randn(N_WALKERS, kernel.n_theta)
+    thetas[:, -1] += np.log(0.05)
+    a32 = args_of(X, y, N_OBS, N_PAD, thetas, torch.float32)
+    ref = _uncounted(lambda: linalg.batched_lml(kernel, *a32, n_real=N_OBS))
+    ref64 = _uncounted(lambda: linalg.batched_lml(
+        kernel, *args_of(X, y, N_OBS, N_PAD, thetas, torch.float64)))
+    bound = 1e-5 * torch.clamp(ref64.abs(), min=1.0)  # phase 5's float64 bound
+    for P in (1, 2, 4):
+        mesh = Mesh([dev] * P, ("walkers",))
+        before = _counts()
+        got = linalg.batched_lml(kernel, *a32, n_real=N_OBS, mesh=mesh)
+        torch.cuda.synchronize()
+        per = _since(before)
+        out[f"north star P={P}"] = {
+            "bit_equal": bool(torch.equal(got, ref)),
+            "max_abs_diff": float((got - ref).abs().max()),
+            "max_abs_err_vs_f64": float((got.double() - ref64).abs().max()),
+            "launches_per_shard": {k: v / P for k, v in per.items()},
+        }
+        checks[f"north star P={P} within phase 5's float64 bound"] = bool(
+            ((got.double() - ref64).abs() <= bound).all())
+        checks[f"north star P={P}: K1 and K3 in every shard"] = (
+            per["K1"] == P and per["K3"] == 4 * P)
+    Xb, yb = batch_dataset()
+    yb = (yb - yb.mean()) / yb.std()
+    tb = 0.05 * np.random.RandomState(2).randn(BATCH_WALKERS, kernel.n_theta)
+    tb[:, -1] += np.log(0.05)
+    b32 = args_of(Xb, yb, BATCH_OBS, BATCH_PAD, tb, torch.float32)
+    refb = _uncounted(lambda: linalg.batched_lml(kernel, *b32, n_real=BATCH_OBS))
+    refb64 = _uncounted(lambda: linalg.batched_lml(
+        kernel, *args_of(Xb, yb, BATCH_OBS, BATCH_PAD, tb, torch.float64)))
+    before = _counts()
+    gotb = linalg.batched_lml(kernel, *b32, n_real=BATCH_OBS, mesh=Mesh([dev] * 2))
+    torch.cuda.synchronize()
+    per = _since(before)
+    boundb = 1e-5 * torch.clamp(refb64.abs(), min=1.0)
+    out["batch ask P=2"] = {
+        "bit_equal": bool(torch.equal(gotb, refb)),
+        "max_abs_diff": float((gotb - refb).abs().max()),
+        "max_abs_err_vs_f64": float((gotb.double() - refb64).abs().max()),
+        "unsharded_max_abs_err_vs_f64": float((refb.double() - refb64).abs().max()),
+        "launches_per_shard": {k: v / 2 for k, v in per.items()},
+    }
+    checks["batch ask P=2 within the float64 bound"] = bool(
+        ((gotb.double() - refb64).abs() <= boundb).all())
+    checks["batch ask P=2: K4 (128, 1024, 15) and K3 in every shard, no K1"] = (
+        per["K4"] == 2 and per["K1"] == 0 and per["K3"] == 16)
+
+    # one warm tell, sharded over [cuda:0] x 2 and not, from one seed
+    def objective(x, rng):
+        return float(np.sum((np.asarray(x) - 0.5) ** 2) + 0.05 * rng.randn())
+
+    def tell(mesh):
+        rng = np.random.RandomState(2)
+        opt = Optimizer(
+            dimensions=[(0.0, 1.0)] * N_DIM, n_points=N_CAND, n_initial_points=N_OBS,
+            random_state=0, device=dev, dtype=torch.float32, mesh=mesh, acq_func="ei",
+            gp_sample_kwargs={"until_rhat": None},
+        )
+        opt.tell(X.tolist(), [objective(x, rng) for x in X], n_samples=8)
+        x = opt.ask()
+        t0 = time.perf_counter()
+        opt.tell(x, objective(x, rng), n_samples=8)
+        torch.cuda.synchronize()
+        return {"warm_tell_s": time.perf_counter() - t0, "next": opt.ask(),
+                "chain": opt.gp.chain_}
+
+    # the unsharded tell is the reference: its launches are not the path's
+    tells = {"unsharded": _uncounted(lambda: tell(None)),
+             "mesh [cuda:0] x 2": tell(Mesh([dev] * 2, ("walkers",)))}
+    a, b = tells["unsharded"], tells["mesh [cuda:0] x 2"]
+    out["optimizer warm tell"] = {
+        "same_next_ask": bool(np.array_equal(a["next"], b["next"])),
+        "next_ask_max_abs_diff": float(np.abs(np.asarray(a["next"]) - np.asarray(b["next"])).max()),
+        "chain_max_abs_diff": float(np.abs(a["chain"] - b["chain"]).max()),
+        "warm_tell_s": {k: v["warm_tell_s"] for k, v in tells.items()},
+    }
+    checks["sharded tell: finite chain, next ask inside the bounds"] = bool(
+        np.isfinite(b["chain"]).all() and all(0.0 <= v <= 1.0 for v in b["next"]))
+    return out, checks
+
+
+def phase12_rows(dev):
+    """(b) the row-sharded LML at n = 32,768, d = 15, nb 256 on 4 strips of
+    the card against the dense float32 port path and a float64 dense
+    factor; unroll both ways; a non-PD theta; times, peak memory, K3
+    launches per sweep; the same LML through a world-size-1 NCCL mesh; K3
+    at the row path's block against cholesky_ex + solve_triangular."""
+    import torch
+
+    from bask_tpu_torch.ops import chol_base, dist_chol, linalg
+    from bask_tpu_torch.ops import kernels as bk
+    from bask_tpu_torch.parallel import distributed
+    from bask_tpu_torch.parallel.mesh import Mesh
+
+    out, checks = {}, {}
+    kernel = bench_kernel(bk)
+    X, y, alpha, mask = _row_data(ROW_OBS, 5, dev, torch.float32)
+    theta = torch.as_tensor(kernel.theta0, dtype=torch.float32, device=dev)
+    mesh = Mesh([dev] * ROW_STRIPS, ("rows",))
+
+    def row(unroll, m=mesh, th=theta, Xr=X, al=alpha):
+        return dist_chol.row_sharded_lml(kernel, th, Xr, y, al, mask, m, nb=ROW_NB,
+                                         unroll=unroll)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    sweeps = {}
+    for unroll in (False, True):
+        before = _counts()
+        v = float(row(unroll))
+        torch.cuda.synchronize()
+        sweeps[unroll] = {"lml": v, "k3_launches": _since(before)["K3"]}
+    row_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    # the references (none of them counted): the dense float32 port path
+    # (K1's gram, blocked K3), the float64 dense factor and float32
+    # cholesky_ex of the sweep's own strip gram, and the sweep with TF32
+    # matmuls, a control that the limit must reject
+    torch.cuda.reset_peak_memory_stats(dev)
+    dense = _uncounted(lambda: float(linalg.batched_lml(
+        kernel, theta[None], X, y, alpha, mask, n_real=ROW_OBS)[0]))
+    dense_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    K32 = _strip_gram(kernel, theta, X, alpha, mask)
+    chol32 = _chol_lml(K32, y)
+    del K32
+    X64, y64, a64 = X.double(), y.double(), alpha.double()
+    K64 = _strip_gram(kernel, theta.double(), X64, a64, mask)
+    lml64 = _chol_lml(K64, y64)
+    del K64
+    torch.cuda.empty_cache()
+
+    def tf32_sweep():
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return float(row(True))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    tf32 = _uncounted(tf32_sweep)
+    # twice cholesky_ex's float32 error at this theta (phase 10's rule),
+    # at least twice the float32 spacing at the LML: a float32 result
+    # carries half a spacing of rounding however it was computed
+    spacing = float(np.spacing(np.float32(abs(lml64))))
+    limit = max(2.0 * spacing, 2.0 * abs(chol32 - lml64))
+    for unroll, s in sweeps.items():
+        s["err_vs_f64"] = abs(s["lml"] - lml64)
+        checks[f"row LML unroll={unroll} within twice cholesky_ex's float32 error"] = (
+            math.isfinite(s["lml"]) and s["err_vs_f64"] <= limit)
+    checks["unroll=True and False give the same row LML"] = (
+        sweeps[True]["lml"] == sweeps[False]["lml"])
+    # the dense path's gram comes from K1, not the sweep's strip builder
+    checks["row LML within the limit of the dense float32 path"] = (
+        abs(sweeps[True]["lml"] - dense) <= limit)
+    checks["the TF32 sweep misses the limit"] = not abs(tf32 - lml64) <= limit  # NaN misses
+    # a non-PD theta: every point twice, no jitter, no noise
+    Xd = torch.cat([X[: ROW_OBS // 2], X[: ROW_OBS // 2]])
+    th_bad = theta.clone()
+    th_bad[-1] = -math.inf
+    bad = float(row(True, th=th_bad, Xr=Xd, al=torch.zeros_like(alpha)))
+    checks["non-PD theta gives -inf with no raise"] = bad == -math.inf
+    # times (CUDA events, not counted): the sweep and the dense path
+    times = _uncounted(lambda: {
+        "row sweep": cuda_ms(lambda: row(True), reps=2),
+        "dense float32 (K1 + blocked K3)": cuda_ms(
+            lambda: linalg.batched_lml(kernel, theta[None], X, y, alpha, mask,
+                                       n_real=ROW_OBS), reps=2),
+    })
+    # world size 1: one strip through the NCCL process group, bit-equal to
+    # the in-process one-entry mesh (the reference, not counted)
+    one = _uncounted(lambda: float(row(True, m=Mesh([dev], ("rows",)))))
+    rank, world = distributed.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                                               local_device_ids=[dev.index or 0])
+    try:
+        gmesh = distributed.global_walker_mesh("rows")
+        nccl = float(row(True, m=gmesh))
+        torch.cuda.synchronize()
+    finally:
+        torch.distributed.destroy_process_group()
+    checks["world-size-1 NCCL mesh bit-equal to the in-process one"] = nccl == one
+    # K3 on the row path: the (256, 256) diagonal block by the recursion
+    # on two 128 bases, against cholesky_ex + solve_triangular
+    blk = torch.as_tensor(_spd_batch(np.random.RandomState(4), 1, ROW_NB)[0],
+                          dtype=torch.float32, device=dev)
+    eye = torch.eye(ROW_NB, device=dev)
+
+    def library():
+        L, _ = torch.linalg.cholesky_ex(blk)
+        return L, torch.linalg.solve_triangular(L, eye, upper=False)
+
+    base = blk[:128, :128].contiguous()
+    k3 = _uncounted(lambda: {
+        "block_ms": cuda_ms(lambda: dist_chol._factor_block(blk)),
+        "base_ms": cuda_ms(lambda: chol_base.chol_inv_base(base)),
+        "base_plain_ms": cuda_ms(lambda: chol_base.chol_inv_plain(base)),
+        "library_block_ms": cuda_ms(library),
+    })
+    L, Linv = _uncounted(lambda: dist_chol._factor_block(blk))
+    Lr, _ = chol_base.chol_inv_plain(blk.double())
+    k3["block_err"] = float((L.double() - Lr).abs().max())
+    m = 128
+    k3["base_bound_ms"], k3["base_bound_by"] = bound_ms(
+        4 * (m * (m + 1) // 2 + 2 * m * m), 2 * m**3 / 3)
+    k3["launches_per_sweep"] = sweeps[True]["k3_launches"]
+    checks["K3 launches on the row sweep (2 per panel)"] = all(
+        s["k3_launches"] == 2 * ROW_OBS // ROW_NB for s in sweeps.values())
+    checks["K3 block within 5e-6 x 2 of float64"] = k3["block_err"] <= 1e-5
+    out.update(
+        n=ROW_OBS, strips=ROW_STRIPS, nb=ROW_NB, sweeps={str(k): v for k, v in sweeps.items()},
+        dense_f32=dense, dense_err_vs_f64=abs(dense - lml64), lml_f64=lml64,
+        cholesky_ex_f32=chol32, f32_spacing=spacing, limit=limit,
+        tf32_sweep={"lml": tf32, "err_vs_f64": abs(tf32 - lml64)}, non_pd=bad, ms=times,
+        peak_gb={"row sweeps": row_peak_gb, "dense float32": dense_peak_gb},
+        world_size_1={"rank": rank, "world": world, "nccl": nccl, "in_process": one},
+        k3_row_block=k3,
+    )
+    return out, checks
+
+
+def phase12_row_model(dev):
+    """(c) row-mode BayesGPR on a (2 walkers x 2 rows) mesh of the card, n =
+    8,192, d = 15: gradients at the start theta (adjoint, jvp, dense
+    float32) against float64; an ML-II warm start (adjoint) and a short
+    chain; predict at 1,000 queries and 4 consensus draws from given
+    normals against the dense float32 model, each held to
+    RM_ERR_MULTIPLE x the dense float32 model's own error against float64."""
+    import torch
+
+    from bask_tpu_torch.models import bayesgpr as tbg
+    from bask_tpu_torch.models import gp as gpc
+    from bask_tpu_torch.ops import dist_chol
+    from bask_tpu_torch.ops import kernels as bk
+    from bask_tpu_torch.parallel.mesh import Mesh
+
+    out, checks = {}, {}
+    rng = np.random.RandomState(6)
+    X = rng.uniform(size=(RM_OBS, N_DIM))
+    y = np.sum((X - 0.5) ** 2, axis=1) + 0.05 * rng.randn(RM_OBS)
+    mesh = Mesh([[dev, dev], [dev, dev]], ("walkers", "rows"))
+    user = bench_kernel(bk).k1  # C * Matern(2.5); fit appends the White
+
+    def model(dtype, row_mesh=None, **kw):
+        return tbg.BayesGPR(kernel=user, random_state=0, normalize_y=True, device=dev,
+                            dtype=dtype, row_mesh=row_mesh, row_nb=256, **kw)
+
+    def limit(err32, scale):
+        return max(1e-5 * max(1.0, scale), RM_ERR_MULTIPLE * err32)
+
+    # gradients at the start theta
+    gp = model(torch.float32, mesh)
+    gp._spec = user + bk.WhiteKernel(1.0, (1e-5, 1e5))
+    gp._set_data(X, y, None)
+    t0 = gp._spec.theta0
+    ref64 = model(torch.float64)
+    ref64._spec = gp._spec
+    ref64._set_data(X, y, None)
+    g64 = -_uncounted(lambda: tbg._log_post_value_grad(ref64._data, ref64._tensor(t0),
+                                                       gp._spec, (), 0))[1]
+    g32 = -_uncounted(lambda: tbg._log_post_value_grad(gp._data, gp._tensor(t0), gp._spec,
+                                                       (), 0))[1]
+    grads, gsec = {}, {}
+    for method in ("adjoint", "jvp"):
+        s0 = time.perf_counter()
+        _, g = dist_chol.row_sharded_lml_value_grad(
+            gp._spec, gp._tensor(t0), gp._data.X, gp._data.y, gp._data.alpha_diag,
+            gp._data.mask, mesh, nb=256, method=method)
+        torch.cuda.synchronize()
+        gsec[method] = time.perf_counter() - s0
+        grads[method] = g.double().cpu().numpy()
+    err32 = float(np.abs(g32 - g64).max())
+    gscale = float(np.abs(g64).max())
+    out["gradients"] = {
+        "max_abs_err_vs_f64": {"dense float32": err32,
+                               **{k: float(np.abs(v - g64).max()) for k, v in grads.items()}},
+        "scale": gscale, "limit": limit(err32, gscale), "seconds": gsec,
+    }
+    for k, v in grads.items():
+        checks[f"(c) {k} gradient within the limit"] = (
+            float(np.abs(v - g64).max()) <= limit(err32, gscale))
+    # the fit: ML-II (adjoint) then 16 walkers x 6 steps
+    gp = model(torch.float32, mesh)
+    s0 = time.perf_counter()
+    gp.fit(X, y, n_desired_samples=RM_WALKERS * RM_STEPS, n_burnin=0,
+           n_walkers_per_thread=RM_WALKERS, progress=False, warn_rhat=None)
+    torch.cuda.synchronize()
+    out["fit_s"] = time.perf_counter() - s0
+    out["chain_shape"] = list(gp.chain_steps_.shape)
+    out["consensus_lml"] = gp.log_marginal_likelihood_value_
+    checks["(c) row-mode fit: finite theta and consensus LML"] = bool(
+        np.isfinite(gp.theta).all() and math.isfinite(gp.log_marginal_likelihood_value_))
+    # predict and draws against dense models at the same theta (their
+    # refresh factors n = 8,192 on K1 and K3: not counted)
+    def dense_model(dtype):
+        d = model(dtype)
+        d._spec = gp._spec
+        d._set_data(X, y, None)
+        d.theta = gp.theta
+        return d
+
+    dense = {dtype: _uncounted(lambda dtype=dtype: dense_model(dtype))
+             for dtype in (torch.float32, torch.float64)}
+    Xq = np.random.RandomState(7).uniform(size=(RM_QUERIES, N_DIM))
+    s0 = time.perf_counter()
+    m_r, s_r = gp.predict(Xq, return_std=True)
+    torch.cuda.synchronize()
+    out["predict_s"] = time.perf_counter() - s0
+    m_32, s_32 = _uncounted(lambda: dense[torch.float32].predict(Xq, return_std=True))
+    m_64, s_64 = _uncounted(lambda: dense[torch.float64].predict(Xq, return_std=True))
+    pred = {}
+    for name, (a, b, a64) in {"mean": (m_r, m_32, m_64), "std": (s_r, s_32, s_64)}.items():
+        e32 = float(np.abs(b - a64).max())
+        pred[name] = {"row_err": float(np.abs(a - a64).max()), "dense32_err": e32,
+                      "row_vs_dense32": float(np.abs(a - b).max()),
+                      "limit": limit(e32, float(np.abs(a64).max()))}
+        checks[f"(c) predict {name} within the limit"] = pred[name]["row_err"] <= pred[name]["limit"]
+    out["predict"] = pred
+    # the covariance at 8 of the queries, and 4 consensus draws from one
+    # set of normals at one of them: draws at several points go through
+    # eigh, whose eigenvectors in a (near) repeated eigenvalue are any
+    # basis of its space, so the draws of two factorizations agree
+    # elementwise only where the eigenvectors are unique
+    Xc = Xq[:8]
+    c_r = gp.predict(Xc, return_cov=True)[1]
+    c_32 = _uncounted(lambda: dense[torch.float32].predict(Xc, return_cov=True)[1])
+    c_64 = _uncounted(lambda: dense[torch.float64].predict(Xc, return_cov=True)[1])
+    e32 = float(np.abs(c_32 - c_64).max())
+    out["cov"] = {"row_err": float(np.abs(c_r - c_64).max()), "dense32_err": e32,
+                  "row_vs_dense32": float(np.abs(c_r - c_32).max()),
+                  "limit": limit(e32, float(np.abs(c_64).max()))}
+    checks["(c) covariance within the limit"] = out["cov"]["row_err"] <= out["cov"]["limit"]
+    Xd = Xq[:1]
+    z = np.random.RandomState(8).randn(1, RM_DRAWS)
+    theta = gp._tensor(gp.theta)
+    td = gpc.noise_free_theta(gp._spec, theta, gp.white_index_)
+    dd = gp._data
+    row_draws = dist_chol.row_sharded_sample_y(
+        gp._spec, theta, dd.X, dd.y, dd.alpha_diag, dd.mask, gp._tensor(Xd), gp._tensor(z), mesh,
+        n_samples=RM_DRAWS, nb=256, y_mean=dd.y_mean, y_std=dd.y_std, theta_diag=td,
+    ).double().cpu().numpy()
+
+    def dense_draws(d):
+        th = d._tensor(d.theta)
+        tdd = gpc.noise_free_theta(d._spec, th, d.white_index_)
+        return gpc.sample_y(d._spec, tdd, d._post, d._post_data, d._tensor(Xd),
+                            d._tensor(z)).double().cpu().numpy()
+
+    d32 = _uncounted(lambda: dense_draws(dense[torch.float32]))
+    d64 = _uncounted(lambda: dense_draws(dense[torch.float64]))
+    e32 = float(np.abs(d32 - d64).max())
+    out["draws"] = {"row_err": float(np.abs(row_draws - d64).max()), "dense32_err": e32,
+                    "row_vs_dense32": float(np.abs(row_draws - d32).max()),
+                    "scale": float(np.abs(d64).max()),
+                    "limit": limit(e32, float(np.abs(d64).max()))}
+    checks["(c) 4 draws within the limit"] = out["draws"]["row_err"] <= out["draws"]["limit"]
+    return out, checks
+
+
+def phase_mesh(dev):
+    """Phase 12: walker sharding (a), the row-sharded LML at full width
+    (b), row-mode BayesGPR (c). The launch counts of the paths it drives
+    (the sharded LMLs, the sweeps, the row-mode fit, predictions and draws,
+    the sharded tell); the references' launches are not counted."""
+    import torch
+
+    for fn in _kernel_counters().values():
+        fn.launches = 0
+    parts, checks = {}, {}
+    for name, fn in (("(a) walkers", phase12_walkers), ("(b) rows", phase12_rows),
+                     ("(c) row-mode BayesGPR", phase12_row_model)):
+        t0 = time.perf_counter()
+        out, ch = fn(dev)
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+        parts[name] = out
+        checks.update(ch)
+    launches = _counts()
+    report("phase 12 meshes and row-sharded Cholesky", launches=launches, **parts)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 12 failed: {failed}")
+    return launches, parts["(b) rows"]["k3_row_block"]
+
+
 def main() -> int:
     import torch
 
@@ -1680,6 +2174,7 @@ def main() -> int:
     by_path["phase 9 polish"] = timed("9", phase_stopping_polish, opt, dev)
     by_path["phase 10 fit options"] = timed("10", phase_fit_options, opt, dev)
     by_path["phase 11 bench_gram_wb"] = k4_path
+    by_path["phase 12 meshes"], k3_rows = timed("12", phase_mesh, dev)
     report("phase seconds", **seconds, total=sum(seconds.values()))
 
     def launches(key):
@@ -1698,7 +2193,8 @@ def main() -> int:
         {"name": "K3 base Cholesky + inverse", "route": "cuda",
          "source": "bask_tpu_torch/csrc/chol_base.cu",
          "replaces": "bask_tpu/ops/pallas_chol_base.py:105",
-         **launches("K3"), **k3, "in_batch_ask_factorization": k3_batch},
+         **launches("K3"), **k3, "in_batch_ask_factorization": k3_batch,
+         "on_row_path": k3_rows},
         {"name": "K4 walker-batched gram", "route": "cuda",
          "source": "bask_tpu_torch/csrc/gram.cu",
          "replaces": "benchmarks/bench_gram_wb.py:59",

@@ -12,7 +12,12 @@ K1), lifted and host priors on CUDA tensors, the Laplace/MAP and device
 L-BFGS fits, prediction gradients and pickling on the card; K4 (the
 walker-batched gram) bit-equal to K1 for every nu, spec layout, a wide
 d and the batch-ask shapes that the gram wrapper routes to it, and its
-refusals.
+refusals; the meshes on the one card: walker shards over [cuda:0] x 2
+equal to the unsharded LML (K1 and K3 in each shard), the row-sharded
+LML at n = 2,048 on 4 strips against float64 (K3 on every diagonal
+block), -inf for a non-PD gram, the row sweep's (256, 256) block on
+two K3 bases against K3's plain version, and row mode at float64 (its
+blocks by cholesky_ex) against the dense float64 model.
 
 Every test here needs a CUDA card and skips without one. The file
 imports no JAX, so it also runs where only the port is installed:
@@ -586,3 +591,143 @@ def test_predict_grads_and_pickle_on_the_card(dev):
     back = pickle.loads(pickle.dumps(gp))
     assert back._post.L.is_cuda
     np.testing.assert_array_equal(back.predict(grid), gp.predict(grid))
+
+
+# -- meshes and the row-sharded Cholesky on the card ------------------------
+
+
+def _mesh_inputs(dev, W=16, n=500, n_pad=512, d=15):
+    thetas, X, alpha = _gram_inputs(dev, False, B=W, n=n, n_pad=n_pad, d=d)
+    rng = np.random.RandomState(9)
+    y = torch.zeros(n_pad, device=dev)
+    y[:n] = torch.tensor(rng.randn(n), dtype=torch.float32, device=dev)
+    mask = torch.arange(n_pad, device=dev) < n
+    return thetas, X, y, alpha, mask
+
+
+def test_walker_sharded_lml_on_the_card(dev):
+    """batched_lml over [cuda:0] x 2 against the unsharded call: every
+    shard launches K1 and its K3 bases; the results agree to float32
+    rounding (cuBLAS may pick other GEMM kernels for the smaller batch)."""
+    from bask_tpu_torch.parallel.mesh import Mesh
+
+    args = _mesh_inputs(dev)
+    plain = linalg.batched_lml(KERNEL, *args, n_real=500)
+    k1, k3 = gram.fused_masked_gram_batch.launches, chol_base.chol_inv_base.launches
+    sharded = linalg.batched_lml(KERNEL, *args, n_real=500, mesh=Mesh([dev] * 2))
+    torch.cuda.synchronize()
+    assert gram.fused_masked_gram_batch.launches - k1 == 2
+    assert chol_base.chol_inv_base.launches - k3 == 8
+    assert sharded.device == plain.device
+    np.testing.assert_allclose(sharded.cpu().numpy(), plain.cpu().numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("unroll", [False, True])
+def test_row_sharded_lml_on_the_card(dev, unroll):
+    """The row-sharded LML at n = 2,048 on 4 strips of the card (K3 on
+    every diagonal block) against the float64 dense LML, within twice the
+    float32 cholesky_ex error; a non-PD gram gives -inf with no raise."""
+    from bask_tpu_torch.ops import dist_chol
+    from bask_tpu_torch.parallel.mesh import Mesh
+
+    n = 2048
+    rng = np.random.RandomState(3)
+    X = torch.tensor(rng.uniform(size=(n, 15)), dtype=torch.float32, device=dev)
+    y = torch.tensor(rng.randn(n), dtype=torch.float32, device=dev)
+    alpha = torch.full((n,), 1e-6, device=dev)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    theta = torch.tensor(KERNEL.theta0, dtype=torch.float32, device=dev)
+    mesh = Mesh([dev] * 4, ("rows",))
+    k3 = chol_base.chol_inv_base.launches
+    got = float(dist_chol.row_sharded_lml(KERNEL, theta, X, y, alpha, mask, mesh, nb=256,
+                                          unroll=unroll))
+    assert chol_base.chol_inv_base.launches - k3 == 2 * n // 256
+    want = float(linalg.masked_lml(KERNEL, theta.double(), X.double(), y.double(),
+                                   alpha.double(), mask))
+    K32 = linalg.masked_gram(KERNEL, theta, X, alpha, mask)
+    L, _ = torch.linalg.cholesky_ex(K32)
+    w = torch.linalg.solve_triangular(L, y[:, None], upper=False)[:, 0]
+    chol32 = float(-0.5 * (w * w).sum() - torch.log(L.diagonal()).sum()
+                   - 0.5 * n * math.log(2 * math.pi))
+    # twice cholesky_ex's float32 error, at least twice the float32
+    # spacing at the LML (all three agree to its rounding at n = 32,768)
+    assert abs(got - want) <= max(2 * float(np.spacing(np.float32(abs(want)))),
+                                  2 * abs(chol32 - want))
+    dup = torch.cat([X[: n // 2], X[: n // 2]])
+    bad = theta.clone()
+    bad[-1] = -math.inf
+    lml_bad = dist_chol.row_sharded_lml(KERNEL, bad, dup, y, torch.zeros_like(alpha), mask,
+                                        mesh, nb=256, unroll=unroll)
+    assert float(lml_bad) == -math.inf
+
+
+def test_row_diagonal_block_on_k3(dev):
+    """The sweep's (256, 256) diagonal block factored by the recursion on
+    two K3 bases against K3's plain version in float64; NaN for a non-PD
+    block."""
+    from bask_tpu_torch.ops import dist_chol
+
+    rng = np.random.RandomState(5)
+    A = rng.randn(256, 256)
+    A = torch.tensor(A @ A.T / 256 + 1e-2 * np.eye(256), dtype=torch.float32, device=dev)
+    k3 = chol_base.chol_inv_base.launches
+    L, Linv = dist_chol._factor_block(A)
+    torch.cuda.synchronize()
+    assert chol_base.chol_inv_base.launches - k3 == 2
+    Lr, Xr = chol_base.chol_inv_plain(A.double())
+    np.testing.assert_allclose(L.double().cpu().numpy(), Lr.cpu().numpy(), atol=1e-5)
+    eye = torch.eye(256, dtype=torch.float64, device=dev)
+    assert float((Linv.double() @ Lr - eye).abs().max()) < 1e-4
+    bad = A.clone()
+    bad[200, 200] = -1.0
+    assert torch.isnan(dist_chol._factor_block(bad)[0]).any()
+
+
+def test_row_mode_at_float64_on_the_card(dev):
+    """Row mode at float64 on the card: K3 takes float32 only, so the
+    sweep factors its diagonal blocks by cholesky_ex, as the dense path
+    does at float64. ``BayesGPR(dtype=torch.float64, row_mesh=[cuda:0] x
+    2)``: the row LML and its adjoint gradient at the start theta against
+    the dense float64 LML and its autograd gradient, then a short fit and
+    ``predict(return_std=True)`` against the dense model at the fitted
+    theta, at the CPU row-mode tests' tolerances; no K3 launch."""
+    from bask_tpu_torch.models import bayesgpr as tbg
+    from bask_tpu_torch.ops import dist_chol
+    from bask_tpu_torch.parallel.mesh import Mesh
+
+    rng = np.random.RandomState(9)
+    n, d = 300, 3
+    X = rng.uniform(size=(n, d))
+    y = np.sin(3.0 * X[:, 0]) + 0.5 * X[:, 1] + 0.05 * rng.randn(n)
+    user = bk.ConstantKernel(1.0, (0.1, 10.0)) * bk.Matern((0.5,) * d, (0.05, 5.0), nu=2.5)
+
+    def model(row_mesh=None):
+        return tbg.BayesGPR(kernel=user, random_state=0, device=dev, dtype=torch.float64,
+                            row_mesh=row_mesh, row_nb=64)
+
+    mesh = Mesh([dev] * 2, ("rows",))
+    row, dense = model(mesh), model()
+    for gp in (row, dense):
+        gp._spec = user + bk.WhiteKernel(1.0, (1e-5, 1e5))
+        gp._set_data(X, y, None)
+    t0 = row._tensor(row._spec.theta0)
+    dd = row._data
+    k3 = chol_base.chol_inv_base.launches
+    v, g = dist_chol.row_sharded_lml_value_grad(row._spec, t0, dd.X, dd.y, dd.alpha_diag,
+                                                dd.mask, mesh, nb=64)
+    nv, ng = tbg._log_post_value_grad(dense._data, t0, dense._spec, (), 0)
+    np.testing.assert_allclose(float(v), -nv, rtol=1e-10)
+    np.testing.assert_allclose(g.cpu().numpy(), -ng, rtol=1e-8, atol=1e-8)
+    row.fit(X, y, n_desired_samples=16, n_burnin=0, n_walkers_per_thread=8, progress=False)
+    assert chol_base.chol_inv_base.launches == k3
+    assert np.isfinite(row.theta).all() and math.isfinite(row.log_marginal_likelihood_value_)
+    dense._spec = row._spec
+    dense._set_data(X, y, None)
+    dense.theta = row.theta
+    np.testing.assert_allclose(row.log_marginal_likelihood_value_,
+                               dense.log_marginal_likelihood(row.theta), rtol=1e-10)
+    Xq = np.random.RandomState(10).uniform(size=(20, d))
+    m_r, s_r = row.predict(Xq, return_std=True)
+    m_d, s_d = dense.predict(Xq, return_std=True)
+    np.testing.assert_allclose(m_r, m_d, rtol=1e-8, atol=1e-9)
+    np.testing.assert_allclose(s_r, s_d, rtol=1e-7, atol=1e-9)

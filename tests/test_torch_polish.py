@@ -189,8 +189,13 @@ def test_custom_fullgp_runs_as_the_legacy_route(fitted):
 
 
 def test_optimizer_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Optimizer(dimensions=[(0.0, 1.0)], mesh=object(), device="cpu")
+    """Walker sharding (``mesh=``) is ported; a row mesh inside the
+    Optimizer is refused with the JAX package's message."""
+    from bask_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match="row_mesh is a BayesGPR"):
+        Optimizer(dimensions=[(0.0, 1.0)], gp_kwargs={"row_mesh": Mesh(["cpu"] * 2)},
+                  device="cpu")
 
 
 def _small_optimizer(**kwargs):

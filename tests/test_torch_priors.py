@@ -219,5 +219,7 @@ def test_unported_modes_raise():
         _port(host_prior_mode="interp")
     with pytest.raises(ValueError, match="host_prior_mode"):
         _port(host_prior_mode="tabulate")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _port(row_nb=128)
+    # row mode is ported: its arguments are taken, a bad gradient refused
+    assert _port(row_nb=128).row_nb == 128
+    with pytest.raises(ValueError, match="row_grad_method"):
+        _port(row_grad_method="bogus")
