@@ -1,7 +1,7 @@
 """Build and load the package's hand-written CUDA kernels.
 
 The sources are ``bask_tpu_torch/csrc/*.cu``, each with a plain C
-interface. At first use each is compiled by its own ``nvcc`` for Hopper
+interface, and the headers they share (``csrc/*.cuh``). At first use each is compiled by its own ``nvcc`` for Hopper
 (``sm_90a``), all started together, and the objects are linked into one
 shared library under ``bask_tpu_torch/_build/``, loaded with ``ctypes``.
 The library's file name carries a hash of the sources, so an edited
@@ -41,9 +41,13 @@ _GRAM_ARGS = [  # thetas, theta_stride, has_const, has_white, n_ls,
 _SIGNATURES = {
     "bask_gram_f32": _GRAM_ARGS,
     "bask_gram_lower_f32": _GRAM_ARGS,  # n_pad a multiple of 128
-    # K1's arguments with wb (walkers per block) after nu_code; shared X
+    # K1's arguments with wb (the walkers of a unit) after nu_code; shared X
     "bask_gram_wb_f32": _GRAM_ARGS[:13] + [_I] + _GRAM_ARGS[13:],
-    # kernel (0 K1, 1 K2, 2 K4), nu_code, d, out: resident blocks per SM
+    # the same, the cross term in one-pass TF32 (a precision control)
+    "bask_gram_wb_tf32_control_f32": _GRAM_ARGS[:13] + [_I] + _GRAM_ARGS[13:],
+    # nu_code, B, n_pad, d, wb, info[5]: K4's launch plan
+    "bask_gram_wb_info": [_I, _I, _I, _I, _I, _P],
+    # kernel (0 K1, 1 K2), nu_code, d, out: resident blocks per SM
     "bask_gram_blocks_per_sm": [_I, _I, _I, _P],
     # A, batch_stride, row_stride, L, Linv, batch, m, stream
     "bask_chol_inv_f32": [_P, _LL, _LL, _P, _P, _I, _I, _P],
@@ -66,7 +70,7 @@ def library() -> ctypes.CDLL:
     """The compiled kernel library, built on first call."""
     sources = sorted(_CSRC.glob("*.cu"))
     digest = hashlib.sha256()
-    for src in sources:
+    for src in sources + sorted(_CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(_ARCH.encode())

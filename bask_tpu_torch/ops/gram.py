@@ -49,14 +49,22 @@ computes only the lower 128-tiles, 10 of 16 at n_pad = 512: the same
 write bound.
 
 K4, :func:`fused_masked_gram_wb_batch`, replaces
-``benchmarks/bench_gram_wb.py::gram_wb``: K1's function for shared X,
-with one CUDA block serving ``wb`` walkers of a tile. The block stages
-the tile's raw X once and scales it by each walker's own ``1/ls``, so
-every entry is K1's bit for bit; what it saves is K1's per-block latency
-(the X loads and the block's start) on all but one walker of ``wb``. Its
-plain version is K1's, :func:`fused_masked_gram_plain`.
-:func:`fused_masked_gram_batch` sends shared-X calls at the shapes of
-:data:`_K4_SHAPES` (the batch ask's) to it.
+``benchmarks/bench_gram_wb.py::gram_wb``: K1's function for shared X
+(``csrc/gram_wb.cu``), redesigned for Hopper. A persistent grid (one
+block per SM) walks units of (``wb`` walkers, one 128 x 128 tile on or
+below the diagonal); each block holds the whole X in shared memory where
+it fits (one bulk copy at its start; otherwise each unit's rows are read
+a step ahead), computes the cross term on the tensor cores in 3xTF32
+(``mma.sync``, the counterpart of JAX's ``Precision.HIGHEST`` product),
+applies K1's epilogue, and writes the tile and its transpose to shared
+memory, from where a storing warp sends them to the gram with TMA tensor
+stores while the next tile computes. Its values are within the same
+4e-6 max|K| of float64 as K1's, not equal to K1's bit for bit; each
+K[b] is exactly symmetric, the diagonal is exact, and a walker's values
+do not depend on B, ``wb`` or the block. Its plain version is K1's,
+:func:`fused_masked_gram_plain`. :func:`fused_masked_gram_batch` sends
+shared-X float32 calls to it at every ``(n_pad, d)`` of :data:`_K4_ROUTE`,
+for every number of walkers.
 
 :func:`_pack_params` (the packed rows ``[amp, noise, 1/ls...]``, as the
 JAX package packs them) stays for the plain version and the tests.
@@ -89,20 +97,21 @@ _TILE = 64  # the kernel's row tile; n_pad must be a multiple
 LOWER_GRAM = "off"
 _SQ_TILE = 128  # K2's zero pattern follows 128-tiles; n_pad must be a multiple
 _NU_CODE = {0.5: 0, 1.5: 1, 2.5: 2, math.inf: 3}
-# The shared-X shapes (walkers, n_pad, d) at which fused_masked_gram_batch
-# launches K4 with _K4_WB walkers per block instead of K1: those where
-# chip_smoke.py phase 11 measured K4 faster than K1 by more than the
-# spread of both (the batch ask's grams). Device time alone, medians of
-# four turns in each of three runs, on an NVIDIA H100 80GB HBM3 at a
-# 700.00 W power limit (PERF.md section 6):
-#   (256, 1024, 1024), d 15: K1 690.7-695.8 us, K4 wb 8 635.4-644.5 us;
-#   (128, 1024, 1024), d 15: K1 350.1-350.5 us, K4 wb 8 337.9-338.8 us.
-# Not routed: (50, 512, 512), d 15, where K4 lost (K1 40.0-40.1 us, K4
-# wb 2 44.6-44.8 us: fewer, longer blocks leave more of the last wave
-# idle), and any shape not measured. The gain is per layer only: the
-# grams are ~1 % of a 2-second batch ask.
-_K4_SHAPES = frozenset({(256, 1024, 15), (128, 1024, 15)})
-_K4_WB = 8
+# K4's route: the (n_pad, d) of shared X at which fused_masked_gram_batch
+# launches K4 (with the given walkers per unit) instead of K1, for every
+# number of walkers, so that splitting the walkers never switches kernels.
+# Routed where chip_smoke.py phase 11 measured K4 faster than K1 beyond the
+# spread of both (device time alone, medians of four turns K1, K4 by wb,
+# reversed, twice), on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit:
+#   (512, 15):  (50, 512, 512):    K1 39.9 us, K4 wb 1 36.6, wb 2 39.0, wb 5 46.3;
+#   (1024, 15): (128, 1024, 1024): K1 342.9 us, K4 wb 1 290.2, wb 2 288.4,
+#                                  wb 4 284.2, wb 8 323.8;
+#               (256, 1024, 1024): K1 695.8 us, K4 wb 1 581.2, wb 2 563.0,
+#                                  wb 4 564.5, wb 8 559.1 (spreads 12-16 us).
+# Any other (n_pad, d) stays on K1 (not measured). The gain is per layer
+# only: the grams are ~1 % of a 2-second batch ask, and the chain is
+# host-bound.
+_K4_ROUTE = {(512, 15): 1, (1024, 15): 4}
 
 
 class FusedSpec(NamedTuple):
@@ -219,13 +228,14 @@ def fused_masked_gram_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real: int)
     (an int: it is a kernel argument).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel (and raises if it cannot): K1, or K4 (bit-equal) for shared X
-    at a shape of :data:`_K4_SHAPES`.
+    kernel (and raises if it cannot): K1, or K4 for shared X at an
+    ``(n_pad, d)`` of :data:`_K4_ROUTE`.
     """
     if not X.is_cuda:
         return fused_masked_gram_plain(spec, thetas, X, alpha_diag, n_real)
-    if X.ndim == 2 and (thetas.shape[0], *X.shape) in _K4_SHAPES:
-        return fused_masked_gram_wb_batch(spec, thetas, X, alpha_diag, n_real, _K4_WB)
+    wb = _K4_ROUTE.get(tuple(X.shape)) if X.ndim == 2 else None
+    if wb is not None:
+        return fused_masked_gram_wb_batch(spec, thetas, X, alpha_diag, n_real, wb)
     return _k1_gram_batch(spec, thetas, X, alpha_diag, n_real)
 
 
@@ -262,17 +272,14 @@ fused_masked_gram_lower_batch.launches = 0
 
 def fused_masked_gram_wb_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real: int, wb: int):
     """K4: :func:`fused_masked_gram_batch` for shared ``X`` (n_pad, d),
-    with one CUDA block serving ``wb`` walkers of a tile (the last block
-    the ``B % wb`` left over). The same function as K1, bit for bit on
-    the card; per-walker X and ``wb < 1`` are refused.
+    with ``wb`` walkers per work unit (the last unit takes the ``B % wb``
+    left over). The same function as K1, within its float64 tolerance;
+    per-walker X and ``wb < 1`` are refused.
 
     A CPU tensor runs the plain version (:func:`fused_masked_gram_plain`);
     a CUDA tensor launches the kernel (and raises if it cannot).
     """
-    if X.ndim != 2:
-        raise ValueError(f"K4 takes shared X (n_pad, d), got {tuple(X.shape)}")
-    if int(wb) < 1:
-        raise ValueError(f"wb={wb}: K4 needs at least one walker per block")
+    _check_wb(X, wb)
     if not X.is_cuda:
         return fused_masked_gram_plain(spec, thetas, X, alpha_diag, n_real)
     out = _launch("bask_gram_wb_f32", _TILE, spec, thetas, X, alpha_diag, n_real, wb=int(wb))
@@ -283,15 +290,49 @@ def fused_masked_gram_wb_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real: i
 fused_masked_gram_wb_batch.launches = 0
 
 
-def _blocks_per_sm(kernel: str, nu: float, d: int) -> int:
-    """Resident blocks per SM of the built ``kernel`` ("K1", "K2" or "K4")
-    for ``nu`` and ``d`` on the current CUDA device, from CUDA's occupancy
-    calculator (K4's count holds for every ``wb``)."""
+def _check_wb(X, wb):
+    if X.ndim != 2:
+        raise ValueError(f"K4 takes shared X (n_pad, d), got {tuple(X.shape)}")
+    if int(wb) < 1:
+        raise ValueError(f"wb={wb}: K4 needs at least one walker per unit")
+
+
+def _wb_tf32_control(spec: FusedSpec, thetas, X, alpha_diag, n_real: int, wb: int):
+    """K4 built with its cross term in one-pass TF32 (no lo products): a
+    control that the precision checks must reject. Card only, uncounted,
+    on no path of the package."""
+    _check_wb(X, wb)
+    if not X.is_cuda:
+        raise ValueError("the TF32 control is a CUDA kernel: give it CUDA tensors")
+    return _launch("bask_gram_wb_tf32_control_f32", _TILE, spec, thetas, X, alpha_diag,
+                   n_real, wb=int(wb))
+
+
+def _wb_info(nu: float, B: int, n_pad: int, d: int, wb: int) -> dict:
+    """K4's launch plan on the current CUDA device for these sizes: dynamic
+    shared memory per block (bytes), whether X is resident in it, resident
+    blocks per SM (CUDA's occupancy calculator), grid blocks and units."""
     from ._cuda import check, library
 
+    info = (ctypes.c_int * 5)()
+    check(library().bask_gram_wb_info(_NU_CODE[nu], int(B), int(n_pad), int(d), int(wb), info),
+          "bask_gram_wb_info")
+    keys = ("smem_bytes", "x_resident", "blocks_per_sm", "grid", "units")
+    return {k: (bool(v) if k == "x_resident" else int(v)) for k, v in zip(keys, info)}
+
+
+def _blocks_per_sm(kernel: str, nu: float, d: int, n_pad: int = 1024) -> int:
+    """Resident blocks per SM of the built ``kernel`` ("K1", "K2" or "K4")
+    for ``nu`` and ``d`` on the current CUDA device, from CUDA's occupancy
+    calculator (K4's shared memory, hence its count, depends on
+    ``n_pad`` too; not on ``wb``)."""
+    from ._cuda import check, library
+
+    if kernel == "K4":
+        return _wb_info(nu, 1, n_pad, d, 1)["blocks_per_sm"]
     out = ctypes.c_int(0)
     err = library().bask_gram_blocks_per_sm(
-        ("K1", "K2", "K4").index(kernel), _NU_CODE[nu], int(d), ctypes.byref(out)
+        ("K1", "K2").index(kernel), _NU_CODE[nu], int(d), ctypes.byref(out)
     )
     check(err, "bask_gram_blocks_per_sm")
     return out.value
@@ -299,8 +340,9 @@ def _blocks_per_sm(kernel: str, nu: float, d: int) -> int:
 
 def _launch(entry: str, multiple: int, spec, thetas, X, alpha_diag, n_real, wb=None):
     """Check the arguments, then launch the C entry point ``entry`` of
-    ``csrc/gram.cu`` on the current stream: one device operation. ``wb``
-    (K4's walkers per block) goes after the nu code where it is given."""
+    ``csrc/gram.cu`` or ``csrc/gram_wb.cu`` on the current stream: one
+    device operation. ``wb`` (K4's walkers per unit) goes after the nu
+    code where it is given."""
     from ._cuda import check, library
 
     B = thetas.shape[0]
@@ -329,6 +371,8 @@ def _launch(entry: str, multiple: int, spec, thetas, X, alpha_diag, n_real, wb=N
     # freed on return: the caching allocator hands its block only to work
     # queued after this launch on the same stream
     X = X.contiguous()
+    if wb is not None and X.data_ptr() % 16:  # K4's bulk copy of X
+        X = X.clone()
     alpha_diag = alpha_diag.contiguous()
     if thetas.stride(1) != 1:
         thetas = thetas.contiguous()

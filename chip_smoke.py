@@ -25,8 +25,10 @@ Phases, each printing one result line:
    in turns;
 5. the batched log marginal likelihood at (100, 512, d = 15) on the
    bench dataset, float32 on the card against the port's float64 run on
-   the CPU; then with ``gram.LOWER_GRAM = "on"`` (K2), bit-equal to the
-   K1 run, for shared X and for per-walker warped X;
+   the CPU (its grams from the route: K1, or K4 where ``gram._K4_ROUTE``
+   sends (512, 15)); then with ``gram.LOWER_GRAM = "on"`` (K2), bit-equal
+   to the LML of K1's gram (``gram._k1_gram_batch``), for shared X and
+   for per-walker warped X;
 6. the Optimizer end to end on the card: a cold tell of 500 points
    (ML-II, then sampling to split R-hat 1.1 in capped legs), three warm
    ask/tell rounds with PVRS, one marginalized EI pass over a 500-point
@@ -39,7 +41,7 @@ Phases, each printing one result line:
 8. the batch ask at the shape of ``benchmarks/bench_batch_ask.py``
    (n = 1,000 in 15-D padded to 1,024, 256 walkers, normalized y): a cold
    tell with an EI pass over 65,536 candidates (its (128 | 256, 1024,
-   1024) grams from K4, to which ``gram._K4_SHAPES`` sends them), then
+   1024) grams from K4, to which ``gram._K4_ROUTE`` sends (1024, 15)), then
    ``ask(n_points=256)`` twice (pathwise Thompson top-k, the rows'
    (256, 1024, 1024) gram from K4 and its blocked factorization with K3
    bases); the grams at (256, 1024, 1024) and (128, 1024, 1024) through
@@ -67,25 +69,29 @@ Phases, each printing one result line:
    fit's consensus LML is held to float64 at phase 6's bound or, where
    cond(K) makes float32 miss that, at twice the error of the float32
    ``cholesky_ex`` path at the same theta;
-11. K4 (the walker-batched gram, ``csrc/gram.cu``): against its plain
-   version in float64 at (50, 512, 512), d = 15, for all four nu; bit-equal
-   to K1 at (50, 512, 512) with 2 and 5 walkers per block, at
-   (256, 1024, 1024) with 2, 4 and 8 and at (128, 1024, 1024) with 4 and
-   8, for the spec variants; one device operation per call; its device
-   time alone next to K1's at (50, 512, 512), (128, 1024, 1024) and
-   (256, 1024, 1024), in turns; registers from nvcc's report and resident
-   blocks per SM from CUDA's occupancy calculator; the batched LML at each
-   shape of ``gram._K4_SHAPES``, bit-equal to K1's; then the path that
-   reaches K4,
-   ``scripts/bench_gram_wb.run`` (2 and 5 walkers per block). It runs
-   after phase 4b, with the other kernel phases.
+11. K4 (the walker-batched gram, ``csrc/gram_wb.cu``): against its plain
+   version in float64 (4e-6 max|K|) for all four nu, the spec variants,
+   ragged n_real and the B % wb tail at (50, 512, 512), d = 15, at d = 40
+   with X resident in shared memory and not, and at n_pad 2,048, the
+   diagonal exact; within twice that of K1 at (50, 512, 512) with 2 and
+   5 walkers per unit, (256, 1024, 1024) with 2, 4 and 8 and
+   (128, 1024, 1024) with 4 and 8, for the spec variants; bit for bit the
+   same across B and wb; its one-pass TF32 control missing the float64
+   bound; one device operation per call; its device time alone next to
+   K1's at (50, 512, 512), (128, 1024, 1024) and (256, 1024, 1024), in
+   turns; registers and spills from nvcc's report, shared memory, blocks
+   per SM and the grid from K4's launch plan; the batched LML through each
+   (n_pad, d) of ``gram._K4_ROUTE`` against float64; then the path that
+   reaches K4, ``scripts/bench_gram_wb.run`` (2 and 5 walkers per unit).
+   It runs after phase 4b, with the other kernel phases.
 
 12. meshes (``bask_tpu_torch.parallel``) and the row-sharded Cholesky
    (``ops/dist_chol.py``) on the one card, whose entries a mesh repeats:
    (a) ``batched_lml(mesh=)`` over [cuda:0] x P, P = 1, 2, 4, at the
    north-star shape (100, 512, d = 15) and over [cuda:0] x 2 at the batch
-   ask's (256, 1024), each shard's gram from K1 (K4 at (128, 1024, 15)),
-   against the unsharded call and float64, with the launches per shard;
+   ask's (256, 1024), each shard's gram from K1 or K4 by the route,
+   against the unsharded call (bit for bit at P = 1, 2) and float64,
+   with the launches per shard;
    one warm tell of ``Optimizer(mesh=...)`` against the unsharded one;
    (b) the row-sharded LML at n = 32,768, d = 15, nb 256 on 4 strips
    (the sweep's diagonal blocks on K3), ``unroll`` both ways, against a
@@ -239,6 +245,19 @@ def kernel_us(ops, key):
     return float(np.median(times)) if times else None
 
 
+def alone_us(fn, key, reps=10, tries=3):
+    """``kernel_us`` of ``reps`` calls of ``fn`` under the profiler, the
+    session repeated where it recorded no device operation (a profiler
+    session on the card can come back empty, PERF.md section 7); None if
+    every try did."""
+    for _ in range(tries):
+        _, ops = profiled(fn, reps=reps)
+        us = kernel_us(ops, key)
+        if us is not None:
+            return us
+    return None
+
+
 def padded(X):
     Xp = np.full((N_PAD, X.shape[1]), 0.5)
     Xp[: len(X)] = X
@@ -308,7 +327,7 @@ def phase_gram(dev):
             kernel.theta0[None] + 0.2 * rng.randn(B, kernel.n_theta),
             dtype=torch.float32, device=dev,
         )
-        K = gram.fused_masked_gram_batch(spec, th, Xin, alpha, N_OBS)
+        K = gram._k1_gram_batch(spec, th, Xin, alpha, N_OBS)
         ref = gram.fused_masked_gram_plain(
             spec, th.double(), Xin.double(), alpha.double(), N_OBS
         )
@@ -328,19 +347,18 @@ def phase_gram(dev):
         dtype=torch.float32, device=dev,
     )
     def call():
-        return gram.fused_masked_gram_batch(spec, th, Xd, alpha, N_OBS)
+        return gram._k1_gram_batch(spec, th, Xd, alpha, N_OBS)
 
     ops_per_call, _ = profiled(call)
     if ops_per_call != 1:
         raise AssertionError(f"K1's wrapper issued {ops_per_call} device operations, not 1")
-    _, ops = profiled(call, reps=20)
-    alone_us = kernel_us(ops, "gram_kernel")
+    k1_us = alone_us(call, "gram_kernel", reps=20)
     ms = cuda_ms(call)
     plain_ms = cuda_ms(lambda: gram.fused_masked_gram_plain(spec, th, Xd, alpha, N_OBS))
     bound, by = gram_bound(B, N_PAD, N_DIM)
     report("phase 2 K1 gram", cases=cases, device_ops_per_call=ops_per_call,
-           ms=ms, kernel_alone_us=alone_us,
-           share_of_write_bound=bound * 1e3 / alone_us, plain_ms=plain_ms,
+           ms=ms, kernel_alone_us=k1_us,
+           share_of_write_bound=bound * 1e3 / k1_us if k1_us else None, plain_ms=plain_ms,
            bound_ms=bound, bound_by=by, shape=[B, N_PAD, N_PAD])
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": None}
@@ -376,7 +394,7 @@ def phase_lower_gram(dev):
                 dtype=torch.float32, device=dev,
             )
             K2 = gram.fused_masked_gram_lower_batch(spec, th, Xin, alpha, N_OBS)
-            K1 = gram.fused_masked_gram_batch(spec, th, Xin, alpha, N_OBS)
+            K1 = gram._k1_gram_batch(spec, th, Xin, alpha, N_OBS)
             ref = gram.fused_masked_gram_lower_plain(
                 spec, th.double(), Xin.double(), alpha.double(), N_OBS
             )
@@ -401,19 +419,19 @@ def phase_lower_gram(dev):
     args = (spec, th, Xd, alpha, N_OBS)
     # in turns: K2, K1, K1, K2
     t2a = cuda_ms(lambda: gram.fused_masked_gram_lower_batch(*args))
-    t1a = cuda_ms(lambda: gram.fused_masked_gram_batch(*args))
-    t1b = cuda_ms(lambda: gram.fused_masked_gram_batch(*args))
+    t1a = cuda_ms(lambda: gram._k1_gram_batch(*args))
+    t1b = cuda_ms(lambda: gram._k1_gram_batch(*args))
     t2b = cuda_ms(lambda: gram.fused_masked_gram_lower_batch(*args))
     plain_ms = cuda_ms(lambda: gram.fused_masked_gram_lower_plain(*args))
-    _, ops = profiled(lambda: gram.fused_masked_gram_lower_batch(*args), reps=20)
-    alone_us = kernel_us(ops, "gram_kernel")
+    k2_us = alone_us(lambda: gram.fused_masked_gram_lower_batch(*args), "gram_kernel", reps=20)
     n_tiles = N_PAD // gram._SQ_TILE
     share = n_tiles * (n_tiles + 1) / 2 / n_tiles**2
     bound, by = gram_bound(B, N_PAD, N_DIM, share)
     ms = float(np.median([t2a, t2b]))
     report("phase 3 K2 lower gram", cases=cases, ms_turns=[t2a, t2b],
-           k1_ms_turns=[t1a, t1b], kernel_alone_us=alone_us,
-           share_of_write_bound=bound * 1e3 / alone_us, plain_ms=plain_ms, bound_ms=bound,
+           k1_ms_turns=[t1a, t1b], kernel_alone_us=k2_us,
+           share_of_write_bound=bound * 1e3 / k2_us if k2_us else None, plain_ms=plain_ms,
+           bound_ms=bound,
            bound_by=by, computed_tile_share=share, shape=[B, N_PAD, N_PAD])
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": None}
@@ -482,8 +500,7 @@ def phase_chol(dev):
         return L, torch.linalg.solve_triangular(L, eye, upper=False)
 
     ms = cuda_ms(lambda: chol_base.chol_inv_base(A))
-    _, ops = profiled(lambda: chol_base.chol_inv_base(A), reps=20)
-    alone_us = kernel_us(ops, "chol_inv_kernel")
+    k3_us = alone_us(lambda: chol_base.chol_inv_base(A), "chol_inv_kernel", reps=20)
     plain_ms = cuda_ms(lambda: chol_base.chol_inv_plain(A))
     library_ms = cuda_ms(library)
     # read the lower triangle of A once, write L and L^-1 once; m^3/3
@@ -491,7 +508,7 @@ def phase_chol(dev):
     # dependent steps are a latency floor this count does not see)
     bound, by = bound_ms(4 * B * (m * (m + 1) // 2 + 2 * m * m), B * 2 * m**3 / 3)
     report("phase 4 K3 chol_base", cases=cases, nan_contract_m128=nan_ok, ms=ms,
-           kernel_alone_us=alone_us, plain_ms=plain_ms, library_ms=library_ms,
+           kernel_alone_us=k3_us, plain_ms=plain_ms, library_ms=library_ms,
            library="cholesky_ex + solve_triangular(L, I)", bound_ms=bound,
            bound_by=by, shape=[B, m, m])
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
@@ -569,9 +586,10 @@ def phase_factor_ab(dev):
 
 
 def phase_lml(dev):
-    """Batched LML (K1 gram + blocked factorization with K3 bases) at the
-    bench shape, against the port's float64 CPU path (plain gram and
-    LAPACK factorization) on the same thetas."""
+    """Batched LML (the routed gram, K4 at (512, 15); the blocked
+    factorization with K3 bases) at the bench shape, against the port's
+    float64 CPU path (plain gram and LAPACK factorization) on the same
+    thetas."""
     import torch
 
     from bask_tpu_torch.ops import kernels as bk
@@ -605,7 +623,7 @@ def phase_lml(dev):
     ms = cuda_ms(gpu, reps=10)
     if not ok:
         raise AssertionError("batched LML on the card disagrees with float64")
-    # LOWER_GRAM on (K2) against off (K1): bit for bit, shared X and
+    # LOWER_GRAM on (K2) against K1's gram: bit for bit, shared X and
     # per-walker warped X (each walker's own warp of the bench inputs)
     from bask_tpu_torch.models import warping
     from bask_tpu_torch.ops import gram
@@ -620,6 +638,9 @@ def phase_lml(dev):
         args = [torch.as_tensor(a, dtype=torch.float32, device=dev)
                 for a in (thetas, Xin, yp, np.full(N_PAD, 1e-6))]
         args.append(torch.as_tensor(mask, device=dev))
+        th_, X_, y_, alpha_, mask_ = args
+        k1 = linalg.batched_lml_from_gram(
+            gram._k1_gram_batch(gram.match_fusable(kernel), th_, X_, alpha_, N_OBS), y_, mask_)
         off = linalg.batched_lml(kernel, *args, n_real=N_OBS)
         k2 = gram.fused_masked_gram_lower_batch.launches
         gram.LOWER_GRAM = "on"
@@ -628,16 +649,19 @@ def phase_lml(dev):
         finally:
             gram.LOWER_GRAM = "off"
         lower[mode] = {
-            "bit_equal": bool(torch.equal(on, off)),
-            "finite": bool(torch.isfinite(off).all()),
+            "bit_equal": bool(torch.equal(on, k1)),
+            "finite": bool(torch.isfinite(on).all()),
             "k2_launched": gram.fused_masked_gram_lower_batch.launches > k2,
         }
+        # the route's LML (K4 where routed) beside it, reported only
+        lower[mode + ", route"] = {"kernel": "K4" if Xin.ndim == 2 and _shared_x_gram() == "K4"
+                                   else "K1", "max_abs_diff": float((off - on).abs().max())}
     report("phase 5 batched LML", shape=[N_WALKERS, N_PAD, N_DIM],
            lml_range=[float(lml.min()), float(lml.max())],
            max_abs_err=float(err.max()), bound=float(bound.min()), ok=ok, ms=ms,
            lower_gram=lower)
-    if not all(all(v.values()) for v in lower.values()):
-        raise AssertionError(f"LML with LOWER_GRAM on differs from off: {lower}")
+    if not all(all(v.values()) for k, v in lower.items() if not k.endswith("route")):
+        raise AssertionError(f"LML with LOWER_GRAM on differs from K1's: {lower}")
 
 
 def _kernel_counters():
@@ -649,6 +673,15 @@ def _kernel_counters():
         "K3": chol_base.chol_inv_base,
         "K4": gram.fused_masked_gram_wb_batch,
     }
+
+
+def _shared_x_gram(n_pad=N_PAD):
+    """The gram kernel ("K1" or "K4") that ``gram.fused_masked_gram_batch``
+    launches for shared X of (n_pad, N_DIM): K4 where ``gram._K4_ROUTE``
+    sends it."""
+    from bask_tpu_torch.ops import gram
+
+    return "K4" if (n_pad, N_DIM) in gram._K4_ROUTE else "K1"
 
 
 def _drive_optimizer(dev, gp_kwargs=None):
@@ -726,7 +759,7 @@ def _lml_plain32_and_cond(gp):
 
 
 def phase_optimizer(dev):
-    """The Optimizer's main path on the card (K1 gram, K3 bases)."""
+    """The Optimizer's main path on the card (the routed gram, K3 bases)."""
     import torch
 
     from bask_tpu_torch import ExpectedImprovement
@@ -756,7 +789,7 @@ def phase_optimizer(dev):
         asks_inside_bounds=inside, launches=launches, peak_mem_gb=peak_gb,
     )
     checks = {
-        "K1 launched": launches["K1"] > 0,
+        f"{_shared_x_gram()} (the shared-X gram) launched": launches[_shared_x_gram()] > 0,
         "K3 launched": launches["K3"] > 0,
         "consensus LML finite": math.isfinite(lml),
         "consensus LML matches f64": abs(lml - lml64) <= 1e-5 * max(1.0, abs(lml64)),
@@ -861,7 +894,7 @@ def batch_dataset():
 def _gram_at(dev, kernel, B, thetas_of, X, routed):
     """The gram at (B, BATCH_PAD, BATCH_PAD) on the batch data for ``B``
     chain rows: through ``gram.fused_masked_gram_batch`` as the path calls
-    it (``routed``: K4 at the shapes of ``gram._K4_SHAPES``), or K1 itself.
+    it (``routed``: K4 at the (n_pad, d) of ``gram._K4_ROUTE``), or K1 itself.
     Held to its float64 plain version on 4 rows (4e-6 max|K|, the bound of
     phase 2); the wrapper's and the kernel's time."""
     import torch
@@ -887,11 +920,10 @@ def _gram_at(dev, kernel, B, thetas_of, X, routed):
     del K, ref
     ms = cuda_ms(lambda: fn(*args), reps=10)
     plain_ms = cuda_ms(lambda: gram.fused_masked_gram_plain(*args), reps=3)
-    _, ops = profiled(lambda: fn(*args), reps=5)
     bound, by = gram_bound(B, BATCH_PAD, N_DIM)
     name = "gram_wb_kernel" if launched == ["K4"] else "gram_kernel"
     out = {"shape": [B, BATCH_PAD, BATCH_PAD], "kernel": launched, "max_abs_err": err,
-           "err_bound": bound_err, "ms": ms, "kernel_alone_us": kernel_us(ops, name),
+           "err_bound": bound_err, "ms": ms, "kernel_alone_us": alone_us(lambda: fn(*args), name, 5),
            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None}
     if not err <= bound_err:
         raise AssertionError(f"{launched} disagrees with its plain version: {out}")
@@ -1121,7 +1153,7 @@ def phase_batch_ask(dev):
     checks = {
         "256 distinct points per ask": distinct == [BATCH_K, BATCH_K],
         "points inside bounds": inside,
-        # the rows' (256, 1024, 1024) gram: K4, by gram._K4_SHAPES
+        # the rows' (256, 1024, 1024) gram: K4, by gram._K4_ROUTE
         "K4 ran in each ask": all(per_step[f"ask {i}"]["K4"] >= 1 for i in (1, 2)),
         "K3 8 per factorization in each ask": all(
             per_step[f"ask {i}"]["K3"] == 8 * (per_step[f"ask {i}"]["K1"] + per_step[f"ask {i}"]["K4"])
@@ -1158,9 +1190,9 @@ def phase_stopping_polish(opt, dev):
     polish = acq_mod.polish_acquisition
 
     def recorded(X0, **kw):
-        k1 = _counts()["K1"]
+        k1 = _counts()[_shared_x_gram()]
         out = polish(X0, **kw)
-        calls.append({"X0": X0, "kw": kw, "out": out, "k1": _counts()["K1"] - k1})
+        calls.append({"X0": X0, "kw": kw, "out": out, "k1": _counts()[_shared_x_gram()] - k1})
         return out
 
     def objective(x, rng=np.random.RandomState(11)):
@@ -1251,7 +1283,7 @@ def phase_stopping_polish(opt, dev):
         "PVRS polish climbs from one start at least": pvrs["climbs"],
         "EI polish climbs from one start at least": ei["climbs"],
         "polished points inside bounds": pvrs["next_inside_bounds"] and ei["next_inside_bounds"],
-        "K1 ran in the EI polish": ei["k1_in_polish"] > 0,
+        f"{_shared_x_gram()} (the shared-X gram) ran in the EI polish": ei["k1_in_polish"] > 0,
         "legacy == fused": all(equal.values()),
     }
     failed = [k for k, v in checks.items() if not v]
@@ -1448,10 +1480,11 @@ def phase_fit_options(opt, dev, progress=True):
             spread is not None and math.isfinite(spread) and spread >= 0.8 * tbg._LAPLACE_STD_MIN,
         "(b) device L-BFGS no worse than L-BFGS-B by 1e-3 relative":
             ml2["lbfgs-device"]["neg_lml_f64"] <= ml2["lbfgs"]["neg_lml_f64"] + ml2_margin,
-        "K1 and K3 launched in each fusable fit":
-            all(by_fit[k]["K1"] >= 1 and by_fit[k]["K3"] >= 1 for k in fusable),
-        "K1 not launched, K3 launched in the general fits":
-            all(by_fit[k]["K1"] == 0 and by_fit[k]["K3"] >= 1 for k in general),
+        f"{_shared_x_gram()} (the shared-X gram) and K3 launched in each fusable fit":
+            all(by_fit[k][_shared_x_gram()] >= 1 and by_fit[k]["K3"] >= 1 for k in fusable),
+        "no gram kernel, K3 launched in the general fits":
+            all(by_fit[k]["K1"] == by_fit[k]["K4"] == 0 and by_fit[k]["K3"] >= 1
+                for k in general),
         "consensus LMLs match float64 (phase 6's bound, or twice cuSOLVER's float32 error)": all(
             math.isfinite(v["consensus_lml"]) and v["lml_err"] <= v["lml_limit"]
             for v in out.values()),
@@ -1491,9 +1524,9 @@ def _ptxas_entries(kernel_name, report_text=None):
         if m:
             spill = int(m.group(1))
             continue
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", ln)
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", ln)
         if m and entry and kernel_name in entry:
-            out.append((entry, int(m.group(1)), spill, int(m.group(2))))
+            out.append((entry, int(m.group(1)), spill, int(m.group(2) or 0)))
     return out
 
 
@@ -1509,17 +1542,32 @@ def _load_script(name):
     return module
 
 
+# K4's walkers per unit timed in phase 11 at each shape (B, n_pad); K1 is
+# timed beside them in the same turns
+K4_TIMED_WB = {(N_WALKERS // 2, N_PAD): (1, 2, 5),
+               (BATCH_WALKERS // 2, BATCH_PAD): (1, 2, 4, 8),
+               (BATCH_WALKERS, BATCH_PAD): (1, 2, 4, 8)}
+
+
 def phase_wb_gram(dev):
-    """Phase 11: K4, the walker-batched gram (``csrc/gram.cu``,
-    ``gram.fused_masked_gram_wb_batch``): within 4e-6 max|K| of the float64
-    plain version at (50, 512, 512), d 15, for all four nu; bit-equal to K1
-    (``gram._k1_gram_batch``) at (50, 512, 512) with wb 2 and 5, at
-    (256, 1024, 1024) with wb 2, 4 and 8 and at (128, 1024, 1024) with wb
-    4 and 8, for the spec variants; one device operation per call; its
-    device time alone next to K1's (wb = 1) at (50 | 128 | 256, ...) in
-    turns; registers from nvcc's report and resident blocks per SM from
-    the occupancy calculator; the batched LML at each routed shape against
-    K1's; then ``scripts/bench_gram_wb.run`` with the counts from 0.
+    """Phase 11: K4, the walker-batched gram (``csrc/gram_wb.cu``,
+    ``gram.fused_masked_gram_wb_batch``): (a) within 4e-6 max|K| of the
+    float64 plain version for all four nu, the spec variants, ragged
+    n_real and the B % wb tail at (50, 512, 512), d 15, at d 40 with X
+    resident (n_pad 256) and read per unit (1,024), and at n_pad 2,048
+    (X read per unit), the diagonal exact (K1's where real, 1 where
+    padded); (b) within twice that of K1 (``gram._k1_gram_batch``) at
+    (50, 512, 512) with wb 2 and 5, (256, 1024, 1024) with 2, 4 and 8 and
+    (128, 1024, 1024) with 4 and 8, for the spec variants; exactly
+    symmetric; (c) bit for
+    bit the same across B and wb; (d) the one-pass TF32 control missing
+    (a)'s bound; (e) one device operation per call; (f) its device time
+    alone next to K1's at (50 | 128 | 256, ...) in turns (K1, K4 wb...,
+    reversed, twice); registers and spills from nvcc's report, dynamic
+    shared memory, resident blocks per SM and the grid from K4's launch
+    plan; (g) the batched LML through each (n_pad, d) of
+    ``gram._K4_ROUTE`` within phase 5's float64 bound; then
+    ``scripts/bench_gram_wb.run`` with the counts from 0.
     Returns (the kernel table's row, the launch counts of the script)."""
     import torch
 
@@ -1531,138 +1579,191 @@ def phase_wb_gram(dev):
     Xb, _ = batch_dataset()
     Xp = np.full((BATCH_PAD, N_DIM), 0.5)
     Xp[:BATCH_OBS] = Xb
-    data = {N_PAD: (torch.tensor(padded(X), dtype=torch.float32, device=dev), N_OBS),
-            BATCH_PAD: (torch.tensor(Xp, dtype=torch.float32, device=dev), BATCH_OBS)}
-    alphas = {n: torch.full((n,), 1e-6, dtype=torch.float32, device=dev) for n in data}
+    data = {(N_PAD, N_DIM): (padded(X), N_OBS), (BATCH_PAD, N_DIM): (Xp, BATCH_OBS)}
+    for n_pad, d in ((256, 40), (1024, 40), (2048, N_DIM)):  # wide d, large n_pad
+        Xw = np.full((n_pad, d), 0.5)
+        Xw[: n_pad - 30] = rng.uniform(size=(n_pad - 30, d))
+        data[(n_pad, d)] = (Xw, n_pad - 30)
 
-    def inputs(kernel, B, n_pad):
+    def inputs(kernel, B, n_pad, d=N_DIM):
         th = torch.tensor(kernel.theta0[None] + 0.2 * rng.randn(B, kernel.n_theta),
                           dtype=torch.float32, device=dev)
-        Xd, n_real = data[n_pad]
-        return gram.match_fusable(kernel), th, Xd, alphas[n_pad], n_real
+        Xn, n_real = data[(n_pad, d)]
+        return (gram.match_fusable(kernel), th, torch.tensor(Xn, dtype=torch.float32, device=dev),
+                torch.full((n_pad,), 1e-6, dtype=torch.float32, device=dev), n_real)
 
     def k4(args, wb):
         return gram.fused_masked_gram_wb_batch(*args, wb)
 
-    # (a) against float64, the bound of phase 2
+    def wide_kernel(d, n_ls, nu=1.5):
+        core = bk.Matern((1.5,) * n_ls if n_ls > 1 else 1.5, (0.05, 20.0), nu=nu)
+        return bk.ConstantKernel(1.0, (0.1, 2.0)) * core + bk.WhiteKernel(0.05, (1e-5, 1e5))
+
+    # (a) against float64, K1's bound (phase 2); the diagonal exact
     B = N_WALKERS // 2
+    cases = [(f"nu={nu}", bench_kernel(bk, nu), B, N_PAD, N_DIM, 3)
+             for nu in (0.5, 1.5, 2.5, math.inf)]
+    cases += [(v, variant_kernel(bk, v), B, N_PAD, N_DIM, 3)
+              for v in ("no ConstantKernel", "no WhiteKernel", "isotropic")]
+    cases += [(f"d=40 n_ls={n_ls}", wide_kernel(40, n_ls), 7, n_pad, 40, 3)
+              for n_pad in (256, 1024) for n_ls in (1, 40)]
+    cases.append(("n_pad=2048 nu=0.5", bench_kernel(bk, 0.5), 3, 2048, N_DIM, 2))
     to_f64, worst = [], 0.0
-    for nu in (0.5, 1.5, 2.5, math.inf):
-        args = inputs(bench_kernel(bk, nu), B, N_PAD)
-        K = k4(args, 5)
+    for label, kernel, B, n_pad, d, wb in cases:
+        args = inputs(kernel, B, n_pad, d)
+        K = k4(args, wb)
         spec, th, Xd, alpha, n_real = args
         ref = gram.fused_masked_gram_plain(spec, th.double(), Xd.double(), alpha.double(), n_real)
         err = float((K.double() - ref).abs().max())
         bound = 4e-6 * float(ref.abs().max())
-        to_f64.append({"nu": nu, "wb": 5, "max_abs_err": err, "bound": bound,
-                       "ok": bool(torch.isfinite(K).all()) and err <= bound})
+        diag = K.diagonal(dim1=-2, dim2=-1)
+        k1_diag = gram._k1_gram_batch(*args).diagonal(dim1=-2, dim2=-1)
+        diag_exact = bool(torch.equal(diag, k1_diag) and (diag[:, n_real:] == 1).all())
+        symmetric = bool(torch.equal(K, K.transpose(1, 2)))
+        plan = gram._wb_info(spec.nu, B, n_pad, d, wb)
+        to_f64.append({"case": label, "shape": [B, n_pad, n_pad], "d": d, "n_real": n_real,
+                       "wb": wb, "x_resident": plan["x_resident"], "max_abs_err": err,
+                       "bound": bound, "diagonal_exact": diag_exact, "symmetric": symmetric,
+                       "ok": bool(torch.isfinite(K).all()) and err <= bound and diag_exact
+                       and symmetric})
         worst = max(worst, err)
         del K, ref
-    # (b) bit-equal to K1
-    kernels = [(f"nu={nu}", bench_kernel(bk, nu)) for nu in (0.5, 1.5, 2.5, math.inf)]
-    kernels += [(v, variant_kernel(bk, v)) for v in ("no ConstantKernel", "no WhiteKernel", "isotropic")]
-    equal = []
-    for B, n_pad, wbs, cases in ((N_WALKERS // 2, N_PAD, (2, 5), kernels),
-                                 (BATCH_WALKERS, BATCH_PAD, (2, 4, 8), kernels[2:]),
-                                 (BATCH_WALKERS // 2, BATCH_PAD, (4, 8), kernels[2:])):
-        for label, kernel in cases:
+    # (b) against K1, twice the bound
+    to_k1 = []
+    for B, n_pad, wbs, kernels in (
+            (N_WALKERS // 2, N_PAD, (2, 5), cases[:7]),
+            (BATCH_WALKERS, BATCH_PAD, (2, 4, 8), cases[2:3] + cases[4:7]),
+            (BATCH_WALKERS // 2, BATCH_PAD, (4, 8), cases[2:3] + cases[4:7])):
+        for label, kernel, *_ in kernels:
             args = inputs(kernel, B, n_pad)
             K1 = gram._k1_gram_batch(*args)
+            bound = 2 * 4e-6 * float(K1.abs().max())
             for wb in wbs:
-                same = bool(torch.equal(k4(args, wb), K1))
-                equal.append({"case": label, "shape": [B, n_pad, n_pad], "n_real": args[-1],
-                              "wb": wb, "bit_equal": same})
+                diff = float((k4(args, wb) - K1).abs().max())
+                to_k1.append({"case": label, "shape": [B, n_pad, n_pad], "wb": wb,
+                              "max_abs_diff": diff, "bound": bound, "ok": diff <= bound})
             del K1
-    # (c) one device operation per call
+    # (c) bit for bit across B and wb: the batch ask's 256 walkers with wb
+    # 8 against halves of them (the shards of phase 12) and other wb
+    args = inputs(bench_kernel(bk), BATCH_WALKERS, BATCH_PAD)
+    full = k4(args, 8)
+    same = {f"wb={wb}": bool(torch.equal(k4(args, wb), full)) for wb in (1, 3)}
+    for lo, hi, wb in ((0, 128, 8), (128, 256, 4), (37, 38, 1)):
+        part = k4((args[0], args[1][lo:hi], *args[2:]), wb)
+        same[f"walkers {lo}:{hi} wb={wb}"] = bool(torch.equal(part, full[lo:hi]))
+    del full
+    # (d) the TF32 control against float64
+    control = []
+    for nu in (0.5, 1.5, 2.5, math.inf):
+        spec, th, Xd, alpha, n_real = inputs(bench_kernel(bk, nu), 8, N_PAD)
+        ref = gram.fused_masked_gram_plain(spec, th.double(), Xd.double(), alpha.double(), n_real)
+        control32 = gram._wb_tf32_control(spec, th, Xd, alpha, n_real, 2)
+        err = float((control32.double() - ref).abs().max())
+        bound = 4e-6 * float(ref.abs().max())
+        control.append({"nu": nu, "max_abs_err": err, "bound": bound, "misses": not err <= bound})
+    # (e) one device operation per call
     args = inputs(bench_kernel(bk), N_WALKERS // 2, N_PAD)
     ops_per_call, _ = profiled(lambda: k4(args, 5))
-    failed = [c for c in to_f64 if not c["ok"]] + [c for c in equal if not c["bit_equal"]]
+    failed = ([c for c in to_f64 if not c["ok"]] + [c for c in to_k1 if not c["ok"]]
+              + [k for k, v in same.items() if not v] + [c for c in control if not c["misses"]])
     if failed or ops_per_call != 1:
         raise AssertionError(f"K4 failed: {failed}, {ops_per_call} device operations per call")
 
-    # (d) alone, in turns: each wb in order then reversed, twice; wb = 1
-    # is K1 itself
+    # (f) alone, in turns: K1 and each wb in order, then reversed, twice
     timing = []
-    for B, n_pad, wbs in ((N_WALKERS // 2, N_PAD, (1, 2, 5)),
-                          (BATCH_WALKERS // 2, BATCH_PAD, (1, 2, 4, 8)),
-                          (BATCH_WALKERS, BATCH_PAD, (1, 2, 4, 8))):
+    for (B, n_pad), wbs in K4_TIMED_WB.items():
         args = inputs(bench_kernel(bk), B, n_pad)
-        turns = {wb: [] for wb in wbs}
-        for wb in (list(wbs) + list(wbs)[::-1]) * 2:
-            if wb == 1:
-                _, ops = profiled(lambda: gram._k1_gram_batch(*args), reps=10)
-                turns[wb].append(kernel_us(ops, "gram_kernel"))
+        keys = ["K1"] + [f"K4 wb={wb}" for wb in wbs]
+        turns = {k: [] for k in keys}
+        for key in (keys + keys[::-1]) * 2:
+            if key == "K1":
+                turns[key].append(alone_us(lambda: gram._k1_gram_batch(*args), "gram_kernel"))
             else:
-                _, ops = profiled(lambda: k4(args, wb), reps=10)
-                turns[wb].append(kernel_us(ops, "gram_wb_kernel"))
+                wb = int(key.split("=")[1])
+                turns[key].append(alone_us(lambda: k4(args, wb), "gram_wb_kernel"))
         bound, by = gram_bound(B, n_pad, N_DIM)
-        med = {wb: float(np.median(t)) for wb, t in turns.items()}
-        spread = {wb: float(max(t) - min(t)) for wb, t in turns.items()}
+        seen = {k: [v for v in t if v is not None] for k, t in turns.items()}
+        med = {k: float(np.median(t)) if t else None for k, t in seen.items()}
+        spread = {k: float(max(t) - min(t)) if t else None for k, t in seen.items()}
         timing.append({
             "shape": [B, n_pad, n_pad], "alone_us_turns": turns, "median_us": med,
             "spread_us": spread, "bound_us": 1e3 * bound, "bound_by": by,
-            "k4_wins_beyond_spreads": {wb: med[1] - med[wb] > spread[1] + spread[wb]
-                                       for wb in wbs if wb > 1},
-            "blocks": {wb: -(-B // wb) * (n_pad // 64) * -(-n_pad // 128) for wb in wbs},
+            "share_of_bound": {k: 1e3 * bound / v if v else None for k, v in med.items()},
+            "k4_wins_beyond_spreads": {
+                k: med["K1"] - med[k] > spread["K1"] + spread[k]
+                if seen["K1"] and seen[k] else None for k in keys[1:]},
+            "k4_plan": {f"wb={wb}": gram._wb_info(2.5, B, n_pad, N_DIM, wb) for wb in wbs},
         })
     args = inputs(bench_kernel(bk), N_WALKERS // 2, N_PAD)
     ms = cuda_ms(lambda: k4(args, 5))
     k1_ms = cuda_ms(lambda: gram._k1_gram_batch(*args))
     plain_ms = cuda_ms(lambda: gram.fused_masked_gram_plain(*args))
     bound, by = gram_bound(N_WALKERS // 2, N_PAD, N_DIM)
-    resources = {name: [{"registers": r, "spill_bytes": s, "smem_bytes": m}
-                        for _, r, s, m in _ptxas_entries(key)]
+    resources = {name: [{"entry": e, "registers": r, "spill_bytes": sp, "static_smem_bytes": m}
+                        for e, r, sp, m in _ptxas_entries(key)]
                  for name, key in (("K4", "gram_wb_kernel"), ("K1 and K2", "11gram_kernel"))}
-    # K4 stages X once at d 15 and re-stages it per chunk at d 40
+    resources["k4_plan"] = {f"n_pad={n_pad} d={d}": gram._wb_info(2.5, 256, n_pad, d, 8)
+                            for n_pad, d in ((N_PAD, N_DIM), (BATCH_PAD, N_DIM), (256, 40),
+                                             (1024, 40), (2048, N_DIM))}
     resources["blocks_per_sm"] = {
         f"{name} d={d}": [gram._blocks_per_sm(name, nu, d) for nu in (0.5, 1.5, 2.5, math.inf)]
         for name in ("K1", "K2", "K4") for d in (N_DIM, 40)}
 
-    # the shapes that gram.fused_masked_gram_batch sends to K4: did this
-    # run find K4 faster there beyond both spreads?
-    won = {(*t["shape"][:2], N_DIM): t["k4_wins_beyond_spreads"] for t in timing}
-    route = [{"walkers_n_pad_d": list(key), "wb": gram._K4_WB,
-              "k4_wins_in_this_run": won.get(key, {}).get(gram._K4_WB)}
-             for key in sorted(gram._K4_SHAPES)]
-    # (f) the batched LML at each routed shape (the batch ask's data): K4's
-    # grams give K1's LMLs bit for bit
+    # the route: did this run find K4 faster beyond both spreads at each
+    # (n_pad, d) it sends to K4, for every timed number of walkers?
+    route = []
+    for (n_pad, d), wb in sorted(gram._K4_ROUTE.items()):
+        won = {str(t["shape"]): t["k4_wins_beyond_spreads"].get(f"K4 wb={wb}")
+               for t in timing if t["shape"][1] == n_pad and d == N_DIM}
+        route.append({"n_pad_d": [n_pad, d], "wb": wb, "k4_wins_in_this_run": won})
+    # (g) the batched LML through each routed (n_pad, d) on the batch
+    # ask's data: K4's grams, within phase 5's float64 bound
     from bask_tpu_torch.ops import linalg
 
     _, yb = batch_dataset()
-    yp = np.zeros(BATCH_PAD)
-    yp[:BATCH_OBS] = (yb - yb.mean()) / yb.std()
-    y_t = torch.tensor(yp, dtype=torch.float32, device=dev)
-    mask = torch.tensor(np.arange(BATCH_PAD) < BATCH_OBS, device=dev)
     kernel = bench_kernel(bk)
     for r in route:
-        B, n_pad, d = r["walkers_n_pad_d"]
-        if (n_pad, d) != (BATCH_PAD, N_DIM):
-            raise AssertionError(f"phase 11 has no data for the routed shape {r}")
-        spec, th, Xd, alpha, n_real = inputs(kernel, B, n_pad)
-        before = gram.fused_masked_gram_wb_batch.launches
-        via_k4 = linalg.batched_lml(kernel, th, Xd, y_t, alpha, mask, n_real=n_real)
-        r["k4_launches_in_lml"] = gram.fused_masked_gram_wb_batch.launches - before
-        via_k1 = linalg.batched_lml_from_gram(gram._k1_gram_batch(spec, th, Xd, alpha, n_real),
-                                              y_t, mask)
-        r["lml_bit_equal_to_k1"] = bool(torch.equal(via_k4, via_k1))
-        r["lml_finite"] = bool(torch.isfinite(via_k4).all())
-    if not all(r["k4_launches_in_lml"] == 1 and r["lml_bit_equal_to_k1"] for r in route):
-        raise AssertionError(f"the LML through the K4 route differs from K1's: {route}")
+        n_pad, d = r["n_pad_d"]
+        n_obs = BATCH_OBS if n_pad == BATCH_PAD else N_OBS
+        if (n_pad, d) not in ((BATCH_PAD, N_DIM), (N_PAD, N_DIM)):
+            raise AssertionError(f"phase 11 has no data for the routed (n_pad, d) {r}")
+        yp = np.zeros(n_pad)
+        yp[:n_obs] = (yb[:n_obs] - yb[:n_obs].mean()) / yb[:n_obs].std()
+        thetas = 0.05 * np.random.RandomState(2).randn(BATCH_WALKERS // 2, kernel.n_theta)
+        thetas[:, -1] += np.log(0.05)
+        Xn, _ = data[(n_pad, d)]
+        mask = np.arange(n_pad) < n_obs
 
-    # (e) the port's bench_gram_wb.py, the path that reaches K4
+        def lml(dtype, th=thetas, Xn=Xn, yp=yp, mask=mask, n_obs=n_obs):
+            t = [torch.as_tensor(a, dtype=dtype, device=dev)
+                 for a in (th, Xn, yp, np.full(len(yp), 1e-6))]
+            return linalg.batched_lml(kernel, *t, torch.as_tensor(mask, device=dev), n_real=n_obs)
+
+        before = gram.fused_masked_gram_wb_batch.launches
+        via_k4 = lml(torch.float32)
+        r["k4_launches_in_lml"] = gram.fused_masked_gram_wb_batch.launches - before
+        ref = lml(torch.float64)
+        r["lml_max_abs_err_vs_f64"] = float((via_k4.double() - ref).abs().max())
+        r["lml_within_phase5_bound"] = bool(
+            ((via_k4.double() - ref).abs() <= 1e-5 * torch.clamp(ref.abs(), min=1.0)).all())
+    if not all(r["k4_launches_in_lml"] == 1 and r["lml_within_phase5_bound"] for r in route):
+        raise AssertionError(f"the LML through the K4 route misses float64: {route}")
+
+    # (h) the port's bench_gram_wb.py, the path that reaches K4
     bench = _load_script("bench_gram_wb")
     for fn in _kernel_counters().values():
         fn.launches = 0
     script = [bench.run(wb, 20) for wb in (2, 5)]
     launches = _counts()
-    report("phase 11 K4 walker-batched gram", to_float64=to_f64, bit_equal_to_k1=equal,
+    report("phase 11 K4 walker-batched gram", to_float64=to_f64, to_k1=to_k1,
+           same_across_b_and_wb=same, tf32_control=control,
            device_ops_per_call=ops_per_call, alone=timing, ms=ms, k1_ms=k1_ms,
            plain_ms=plain_ms, bound_ms=bound, bound_by=by, resources=resources,
            route=route, bench_gram_wb=script, launches=launches)
     if launches["K4"] == 0:
         raise AssertionError("scripts/bench_gram_wb.py did not launch K4")
     row = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-           "bound_by": by, "library_ms": None, "routed_shapes": route,
+           "bound_by": by, "library_ms": None, "route": route,
            "alone_us": [{"shape": t["shape"], "median_us": t["median_us"],
                          "spread_us": t["spread_us"]} for t in timing]}
     return row, launches
@@ -1780,8 +1881,12 @@ def phase12_walkers(dev):
         }
         checks[f"north star P={P} within phase 5's float64 bound"] = bool(
             ((got.double() - ref64).abs() <= bound).all())
-        checks[f"north star P={P}: K1 and K3 in every shard"] = (
-            per["K1"] == P and per["K3"] == 4 * P)
+        if P <= 2:  # each shard's gram and GEMMs keep their sizes' kernels
+            checks[f"north star P={P} bit-equal to the unsharded call"] = bool(
+                torch.equal(got, ref))
+        gram_k = _shared_x_gram()
+        checks[f"north star P={P}: {gram_k} and K3 in every shard"] = (
+            per[gram_k] == P and per["K3"] == 4 * P)
     Xb, yb = batch_dataset()
     yb = (yb - yb.mean()) / yb.std()
     tb = 0.05 * np.random.RandomState(2).randn(BATCH_WALKERS, kernel.n_theta)
@@ -1804,8 +1909,10 @@ def phase12_walkers(dev):
     }
     checks["batch ask P=2 within the float64 bound"] = bool(
         ((gotb.double() - refb64).abs() <= boundb).all())
-    checks["batch ask P=2: K4 (128, 1024, 15) and K3 in every shard, no K1"] = (
-        per["K4"] == 2 and per["K1"] == 0 and per["K3"] == 16)
+    checks["batch ask P=2 bit-equal to the unsharded call"] = bool(torch.equal(gotb, refb))
+    gram_k = _shared_x_gram(BATCH_PAD)
+    checks[f"batch ask P=2: {gram_k} and K3 in every shard"] = (
+        per[gram_k] == 2 and per["K1"] + per["K4"] == 2 and per["K3"] == 16)
 
     # one warm tell, sharded over [cuda:0] x 2 and not, from one seed
     def objective(x, rng):
@@ -2196,7 +2303,7 @@ def main() -> int:
          **launches("K3"), **k3, "in_batch_ask_factorization": k3_batch,
          "on_row_path": k3_rows},
         {"name": "K4 walker-batched gram", "route": "cuda",
-         "source": "bask_tpu_torch/csrc/gram.cu",
+         "source": "bask_tpu_torch/csrc/gram_wb.cu",
          "replaces": "benchmarks/bench_gram_wb.py:59",
          **launches("K4"), **k4, "at_batch_ask_shapes": k4_batch},
     ]

@@ -8,8 +8,9 @@ W, N, D = 50, 512, 15, the kernel
 ``ConstantKernel(1.0) * Matern([0.3] * 15, nu=2.5) + WhiteKernel(0.05)``,
 X and thetas from ``np.random.RandomState(0)`` in that script's order.
 First it asserts that K4 (``gram.fused_masked_gram_wb_batch``) with ``wb``
-walkers per block equals K1 (``gram.fused_masked_gram_batch``) bit for
-bit. Then it times ``reps`` back-to-back calls of each, with the thetas
+walkers per unit is within 4e-6 max|K| of its float64 plain version (the
+bound K1 is held to) and within twice that of K1 (``gram._k1_gram_batch``,
+K1 itself). Then it times ``reps`` back-to-back calls of each, with the thetas
 moved by ``1e-5 i`` at call ``i`` and every gram summed into one sink (a
 full-output read, as the JAX script's scan does), by CUDA events around
 the whole loop. Prints the card's name and power limit and one JSON
@@ -73,7 +74,7 @@ def _loop_ms(fn, ths):
 
 
 def run(wb: int = 5, reps: int = 100) -> dict:
-    """Assert K4 == K1 bit for bit at ``wb``, then time ``reps`` calls of
+    """Hold K4 at ``wb`` to float64 and to K1, then time ``reps`` calls of
     each (K4 first, then K1); returns the numbers."""
     import torch
 
@@ -84,17 +85,21 @@ def run(wb: int = 5, reps: int = 100) -> dict:
     dev = torch.device("cuda", 0)
     spec, thetas, X, alpha = problem(dev)
     k4 = gram.fused_masked_gram_wb_batch(spec, thetas, X, alpha, N, wb)
-    k1 = gram.fused_masked_gram_batch(spec, thetas, X, alpha, N)
-    err = float((k4 - k1).abs().max())
-    if not torch.equal(k4, k1):
-        raise AssertionError(f"K4 (wb={wb}) differs from K1 by up to {err}")
-    del k4, k1
+    k1 = gram._k1_gram_batch(spec, thetas, X, alpha, N)
+    ref = gram.fused_masked_gram_plain(spec, thetas.double(), X.double(), alpha.double(), N)
+    tol = 4e-6 * float(ref.abs().max())
+    err = float((k4.double() - ref).abs().max())
+    diff = float((k4 - k1).abs().max())
+    if not (err <= tol and diff <= 2 * tol):
+        raise AssertionError(f"K4 (wb={wb}): {err} from float64, {diff} from K1 (tolerance {tol})")
+    del k4, k1, ref
     steps = 1e-5 * torch.arange(reps, dtype=torch.float32, device=dev)
     ths = list(thetas[None] + steps[:, None, None])
     k4_ms, _ = _loop_ms(lambda th: gram.fused_masked_gram_wb_batch(spec, th, X, alpha, N, wb), ths)
-    k1_ms, _ = _loop_ms(lambda th: gram.fused_masked_gram_batch(spec, th, X, alpha, N), ths)
-    return {"wb": wb, "reps": reps, "shape": [W, N, N], "d": D, "exact_err": err,
-            "k4_ms_per_call": k4_ms, "k1_ms_per_call": k1_ms}
+    k1_ms, _ = _loop_ms(lambda th: gram._k1_gram_batch(spec, th, X, alpha, N), ths)
+    return {"wb": wb, "reps": reps, "shape": [W, N, N], "d": D, "max_abs_err_f64": err,
+            "max_abs_diff_k1": diff, "tolerance": tol, "k4_ms_per_call": k4_ms,
+            "k1_ms_per_call": k1_ms}
 
 
 def main() -> int:

@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """What holds the kernels K1 and K3 back: time variants of their sources.
 
-Run from the repository root:  python3 scripts/kernel_variants.py
+Run from the repository root:  python3 scripts/kernel_variants.py [batch]
+
+With ``batch``, K1 and K4 run at the batch ask's (256, 1024, 1024) on its
+data (chip_smoke.batch_dataset, 1,000 points padded to 1,024) with 8
+walkers per unit, instead of the chain's shape below.
 
 Each variant is a kernel's source with one part taken out or changed,
 built by its own ``nvcc`` (all at once) into ``bask_tpu_torch/_build/``
@@ -19,12 +23,17 @@ nu = 5/2, shared X:
 * ``2 blocks per SM``: ``__launch_bounds__`` asking for two resident
   blocks instead of three (more registers, fewer warps).
 
-K4 (``csrc/gram.cu``, ``gram_wb_kernel``) at K1's shape and inputs, 5
-walkers per block, each variant first checked bit-equal to K1:
+K4 (``csrc/gram_wb.cu``, ``gram_wb_kernel``) at K1's shape and inputs,
+5 walkers per unit:
 
-* ``as is``;
-* ``2 blocks per SM``: its ``__launch_bounds__`` asking for two resident
-  blocks (up to 128 registers a thread, no spills) instead of three.
+* ``as is``: the kernel, checked against its float64 plain version;
+* ``no store``: no TMA store issued (the epilogue still fills the
+  staging tiles), so the write all but disappears;
+* ``no exp, no sqrt``: the Matern value replaced by d2 itself;
+* ``one-pass TF32``: the cross term as hi.hi alone (one MMA for three);
+* ``no MMA``: no tensor-core product at all (the dot stays 0);
+* ``no store wait``: no wait for the stores of the step before (the
+  staging tiles may be overwritten while they drain).
 
 K3 (``csrc/chol_base.cu``) at (50, 128, 128):
 
@@ -56,8 +65,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 
 ROUNDS = 2
-WB = 5  # K4's walkers per block
+WB = 5  # K4's walkers per unit (8 with ``batch``)
 CSRC = os.path.join(os.path.dirname(os.path.abspath(cs.__file__)), "bask_tpu_torch", "csrc")
+
+
+def _median(times):
+    """The median of the turns that recorded the kernel (a profiler session
+    can come back empty on the card; PERF.md section 7), or None."""
+    seen = [t for t in times if t is not None]
+    return float(np.median(seen)) if seen else None
 
 
 def _replace(src: str, old: str, new: str) -> str:
@@ -84,11 +100,24 @@ def gram_variants(src: str) -> dict:
 
 
 def gram_wb_variants(src: str) -> dict:
-    bounds = "__launch_bounds__(kThreads, 3)\ngram_wb_kernel"
+    matern = "__device__ __forceinline__ float matern(float d2) {"
+    store = '  asm volatile(\n      "cp.async.bulk.tensor.3d'
     return {
         "as is": src,
-        "2 blocks per SM": _replace(src, bounds, bounds.replace("3)", "2)")),
+        "no store": _replace(src, store, "  if (b >= 0) return;\n" + store),
+        "no exp, no sqrt": _replace(src, matern, matern + "\n  return d2;"),
+        "one-pass TF32": _replace(src, "if (!kOnePass) {", "if (false) {"),
+        "no MMA": _replace(_replace(src, "if (!kOnePass) {", "if (false) {"),
+                           "            mma_tf32(acc[mt][nt], ah[mt], bh[nt]);\n", ""),
+        "no store wait": _replace(src, "      bulk_wait_read_all();", ""),
     }
+
+
+def with_header(src: str) -> str:
+    """A source with ``gram_common.cuh`` pasted in, so that a variant is
+    one file and its edits reach the shared epilogue."""
+    with open(os.path.join(CSRC, "gram_common.cuh")) as f:
+        return _replace(src, '#include "gram_common.cuh"', f.read())
 
 
 def chol_variants(src: str) -> dict:
@@ -158,33 +187,42 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0], flush=True)
     with open(os.path.join(CSRC, "gram.cu")) as f:
-        src = f.read()
+        src = with_header(f.read())
+    with open(os.path.join(CSRC, "gram_wb.cu")) as f:
+        wb_src = with_header(f.read())
     variants = {("K1", k): v for k, v in gram_variants(src).items()}
-    variants.update({("K4", k): v for k, v in gram_wb_variants(src).items()})
+    variants.update({("K4", k): v for k, v in gram_wb_variants(wb_src).items()})
     with open(os.path.join(CSRC, "chol_base.cu")) as f:
         variants.update({("K3", k): v for k, v in chol_variants(f.read()).items()})
     libs = build(variants)
 
     dev = torch.device("cuda", 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    B = cs.N_WALKERS // 2
+    batch = sys.argv[1:2] == ["batch"]
+    B = cs.BATCH_WALKERS if batch else cs.N_WALKERS // 2
+    n_pad = cs.BATCH_PAD if batch else cs.N_PAD
+    n_obs = cs.BATCH_OBS if batch else cs.N_OBS
+    wb = 8 if batch else WB
 
     def check(err):
         if err:
             raise RuntimeError(f"launch failed: CUDA error {err}")
 
     # K1's inputs
-    X, _ = cs.bench_dataset()
-    Xd = torch.tensor(cs.padded(X), dtype=torch.float32, device=dev)
-    alpha = torch.full((cs.N_PAD,), 1e-6, dtype=torch.float32, device=dev)
+    X = cs.batch_dataset()[0] if batch else cs.bench_dataset()[0]
+    Xp = np.full((n_pad, cs.N_DIM), 0.5)
+    Xp[:n_obs] = X
+    Xd = torch.tensor(Xp, dtype=torch.float32, device=dev)
+    alpha = torch.full((n_pad,), 1e-6, dtype=torch.float32, device=dev)
     kernel = cs.bench_kernel(bk, 2.5)
     spec = gram.match_fusable(kernel)
     th = torch.tensor(kernel.theta0[None] + 0.2 * np.random.RandomState(0).randn(B, kernel.n_theta),
                       dtype=torch.float32, device=dev)
-    K = torch.empty((B, cs.N_PAD, cs.N_PAD), dtype=torch.float32, device=dev)
+    K = torch.empty((B, n_pad, n_pad), dtype=torch.float32, device=dev)
     # K3's inputs
     m = 128
-    A = torch.tensor(cs._spd_batch(np.random.RandomState(0), B, m), dtype=torch.float32, device=dev)
+    B3 = cs.N_WALKERS // 2  # K3 at (50, 128, 128) either way
+    A = torch.tensor(cs._spd_batch(np.random.RandomState(0), B3, m), dtype=torch.float32, device=dev)
     L = torch.empty_like(A)
     Linv = torch.empty_like(A)
 
@@ -195,32 +233,32 @@ def main() -> int:
         if key[0] == "K1":
             return lambda: check(lib.bask_gram_f32(
                 th.data_ptr(), th.stride(0), 1, 1, cs.N_DIM, Xd.data_ptr(), 0,
-                alpha.data_ptr(), cs.N_OBS, B, cs.N_PAD, cs.N_DIM, 2, K.data_ptr(), stream,
+                alpha.data_ptr(), n_obs, B, n_pad, cs.N_DIM, 2, K.data_ptr(), stream,
             ))
         if key[0] == "K4":
             return lambda: check(lib.bask_gram_wb_f32(
                 th.data_ptr(), th.stride(0), 1, 1, cs.N_DIM, Xd.data_ptr(), 0,
-                alpha.data_ptr(), cs.N_OBS, B, cs.N_PAD, cs.N_DIM, 2, WB, K4.data_ptr(), stream,
+                alpha.data_ptr(), n_obs, B, n_pad, cs.N_DIM, 2, wb, K4.data_ptr(), stream,
             ))
         return lambda: check(lib.bask_chol_inv_f32(
-            A.data_ptr(), A.stride(0), A.stride(1), L.data_ptr(), Linv.data_ptr(), B, m, stream,
+            A.data_ptr(), A.stride(0), A.stride(1), L.data_ptr(), Linv.data_ptr(), B3, m, stream,
         ))
 
     launch(("K1", "as is"))()
-    ref = gram.fused_masked_gram_plain(spec, th.double(), Xd.double(), alpha.double(), cs.N_OBS)
-    if float((K.double() - ref).abs().max()) > 4e-6 * float(ref.abs().max()):
-        raise AssertionError("K1 as is disagrees with its plain version")
-    for variant in gram_wb_variants(src):
-        launch(("K4", variant))()
-        if not torch.equal(K4, K):
-            raise AssertionError(f"K4 {variant} differs from K1")
+    launch(("K4", "as is"))()
+    rows = [0, B // 3, 2 * B // 3, B - 1]
+    ref = gram.fused_masked_gram_plain(spec, th[rows].double(), Xd.double(), alpha.double(), n_obs)
+    for name, out in (("K1", K), ("K4", K4)):
+        if float((out[rows].double() - ref).abs().max()) > 4e-6 * float(ref.abs().max()):
+            raise AssertionError(f"{name} as is disagrees with its plain version")
     launch(("K3", "as is"))()
     Lr, _ = chol_base.chol_inv_plain(A.double())
     if float((L.double() - Lr).abs().max()) > 2e-5:
         raise AssertionError("K3 as is disagrees with the float64 factor")
 
-    bounds = {"K1": cs.gram_bound(B, cs.N_PAD, cs.N_DIM),
-              "K3": cs.bound_ms(4 * B * (m * (m + 1) // 2 + 2 * m * m), B * 2 * m**3 / 3)}
+    del ref
+    bounds = {"K1": cs.gram_bound(B, n_pad, cs.N_DIM),
+              "K3": cs.bound_ms(4 * B3 * (m * (m + 1) // 2 + 2 * m * m), B3 * 2 * m**3 / 3)}
     bounds["K4"] = bounds["K1"]
     times = {key: [] for key in libs}
     order = list(libs) + list(libs)[::-1]
@@ -231,11 +269,11 @@ def main() -> int:
     for key, (_, regs) in libs.items():
         bound, by = bounds[key[0]]
         print(json.dumps({"kernel": key[0], "variant": key[1], "alone_us_turns": times[key],
-                          "median_us": float(np.median(times[key])),
+                          "median_us": _median(times[key]),
                           "registers_and_spill_bytes": regs,
                           "bound_us": bound * 1e3, "bound_by": by,
-                          "shape": [B, cs.N_PAD, cs.N_PAD] if key[0] != "K3" else [B, m, m],
-                          **({"wb": WB} if key[0] == "K4" else {})}),
+                          "shape": [B, n_pad, n_pad] if key[0] != "K3" else [cs.N_WALKERS // 2, m, m],
+                          **({"wb": wb} if key[0] == "K4" else {})}),
               flush=True)
     return 0
 

@@ -2,7 +2,8 @@
 128-tiles; every layout of thetas the in-kernel packing reads) and K3
 (Cholesky + inverse of blocks up to 128 wide, also read in place)
 against their plain versions, their launch counters, K1's one device
-operation per call, the wrappers' refusals, and the batched LML through
+operation per call (each K1 itself, as ``gram._k1_gram_batch`` calls
+it), the wrappers' refusals, and the batched LML through
 the kernels (with K2, bit-equal to the K1 run), and the batch-ask shapes:
 K1 at (256, 1024, 1024), the blocked factorization of that size (8 K3
 launches) against ``cholesky_ex`` in float64, and one pathwise top-k
@@ -10,10 +11,13 @@ against its float64 recomputation; and the paths of the fit options:
 general-nu Matern and Exponentiation LMLs (plain grams, K3 bases, no
 K1), lifted and host priors on CUDA tensors, the Laplace/MAP and device
 L-BFGS fits, prediction gradients and pickling on the card; K4 (the
-walker-batched gram) bit-equal to K1 for every nu, spec layout, a wide
-d and the batch-ask shapes that the gram wrapper routes to it, and its
-refusals; the meshes on the one card: walker shards over [cuda:0] x 2
-equal to the unsharded LML (K1 and K3 in each shard), the row-sharded
+walker-batched gram) within K1's float64 tolerance and twice that of K1
+for every nu, spec layout, a wide d (X resident and not), an n_pad past
+what fits in shared memory and the batch-ask shapes, bit for bit the
+same across B and wb, its one-pass TF32 control missing the tolerance,
+the route choosing it by (n_pad, d), and its refusals; the meshes on
+the one card: walker shards over [cuda:0] x 2 equal to the unsharded
+LML (the routed gram and K3 in each shard), the row-sharded
 LML at n = 2,048 on 4 strips against float64 (K3 on every diagonal
 block), -inf for a non-PD gram, the row sweep's (256, 256) block on
 two K3 bases against K3's plain version, and row mode at float64 (its
@@ -72,7 +76,8 @@ def test_gram_kernel_matches_plain(dev, nu, per_walker):
     spec = gram.FusedSpec(nu=nu, n_ls=15, has_const=True, has_white=True)
     thetas, X, alpha = _gram_inputs(dev, per_walker)
     before = gram.fused_masked_gram_batch.launches
-    K = gram.fused_masked_gram_batch(spec, thetas, X, alpha, 500)
+    # K1 itself: the gram wrapper sends shared X at (512, 15) to K4
+    K = gram._k1_gram_batch(spec, thetas, X, alpha, 500)
     torch.cuda.synchronize()
     assert gram.fused_masked_gram_batch.launches == before + 1
     ref = gram.fused_masked_gram_plain(spec, thetas.double(), X.double(), alpha.double(), 500)
@@ -99,7 +104,7 @@ def test_gram_kernel_packs_every_spec_variant(dev, variant):
         np.log(0.4) + 0.2 * np.random.RandomState(7).randn(8, n_theta),
         dtype=torch.float32, device=dev,
     )
-    K = gram.fused_masked_gram_batch(spec, thetas, X, alpha, 500)
+    K = gram._k1_gram_batch(spec, thetas, X, alpha, 500)
     ref = gram.fused_masked_gram_plain(spec, thetas.double(), X.double(), alpha.double(), 500)
     torch.cuda.synchronize()
     assert torch.isfinite(K).all()
@@ -115,34 +120,57 @@ def test_gram_wrapper_issues_one_device_operation(dev):
     wide = torch.cat([thetas, torch.zeros_like(thetas[:, :4])], dim=1)
     spec = gram.match_fusable(KERNEL)
     for th in (thetas, wide[:, : KERNEL.n_theta]):
-        gram.fused_masked_gram_batch(spec, th, X, alpha, 500)
+        gram._k1_gram_batch(spec, th, X, alpha, 500)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            K = gram.fused_masked_gram_batch(spec, th, X, alpha, 500)
+            K = gram._k1_gram_batch(spec, th, X, alpha, 500)
             torch.cuda.synchronize()
         ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         assert len(ops) == 1, [e.name for e in ops]
-        assert torch.equal(K, gram.fused_masked_gram_batch(spec, thetas, X, alpha, 500))
+        assert torch.equal(K, gram._k1_gram_batch(spec, thetas, X, alpha, 500))
+
+
+def _check_wb_gram(K4, spec, thetas, X, alpha, n_real, rows=None, k1=True):
+    """K4's gram against the float64 plain version (K1's 4e-6 max|K|, on
+    ``rows`` of the batch where given) and against K1 on the same inputs
+    (twice that); exactly symmetric; the diagonal exact: amp + noise +
+    alpha as K1 forms it where real, 1 where padded."""
+    rows = list(range(thetas.shape[0])) if rows is None else rows
+    ref = gram.fused_masked_gram_plain(spec, thetas[rows].double(), X.double(),
+                                       alpha.double(), n_real)
+    tol = 4e-6 * float(ref.abs().max())
+    assert torch.isfinite(K4).all()
+    assert torch.equal(K4, K4.transpose(1, 2))  # each tile computed once, mirrored
+    assert float((K4[rows].double() - ref).abs().max()) <= tol
+    diag = K4.diagonal(dim1=-2, dim2=-1)
+    if k1:
+        K1 = gram._k1_gram_batch(spec, thetas, X, alpha, n_real)
+        assert float((K4 - K1).abs().max()) <= 2 * tol
+        assert torch.equal(diag, K1.diagonal(dim1=-2, dim2=-1))
+    assert torch.equal(diag[:, n_real:], torch.ones_like(diag[:, n_real:]))
 
 
 @pytest.mark.parametrize("nu", [0.5, 1.5, 2.5, math.inf])
 @pytest.mark.parametrize("wb", [2, 5])
 def test_wb_gram_kernel_is_k1_bit_for_bit(dev, nu, wb):
-    """K4 at the chain's shape (50, 512, 512), d 15, n_real 500: every
-    entry equal to K1's, and one launch counted."""
+    """K4 at the chain's shape (50, 512, 512), d 15, n_real 500: within
+    4e-6 max|K| of float64 and twice that of K1 (its 3xTF32 cross term
+    rounds otherwise than K1's FMA chain, so no longer bit for bit), the
+    diagonal K1's exactly; one launch counted."""
     spec = gram.FusedSpec(nu=nu, n_ls=15, has_const=True, has_white=True)
     thetas, X, alpha = _gram_inputs(dev, False, B=50)
     before = gram.fused_masked_gram_wb_batch.launches
     K4 = gram.fused_masked_gram_wb_batch(spec, thetas, X, alpha, 500, wb)
     torch.cuda.synchronize()
     assert gram.fused_masked_gram_wb_batch.launches == before + 1
-    assert torch.equal(K4, gram.fused_masked_gram_batch(spec, thetas, X, alpha, 500))
+    _check_wb_gram(K4, spec, thetas, X, alpha, 500)
 
 
 @pytest.mark.parametrize("variant", sorted(SPEC_VARIANTS))
 def test_wb_gram_kernel_is_k1_for_every_spec_variant(dev, variant):
-    """K4 reads thetas as K1 does: bit-equal for each layout, with a
-    ragged last block (50 walkers, 3 per block)."""
+    """K4 reads thetas as K1 does: for each layout, with a ragged last
+    unit (50 walkers, 3 per unit), within the float64 tolerance and twice
+    that of K1, the diagonal K1's."""
     spec, n_theta = SPEC_VARIANTS[variant]
     _, X, alpha = _gram_inputs(dev, False)
     thetas = torch.tensor(
@@ -150,50 +178,138 @@ def test_wb_gram_kernel_is_k1_for_every_spec_variant(dev, variant):
         dtype=torch.float32, device=dev,
     )
     K4 = gram.fused_masked_gram_wb_batch(spec, thetas, X, alpha, 500, 3)
-    assert torch.equal(K4, gram.fused_masked_gram_batch(spec, thetas, X, alpha, 500))
+    _check_wb_gram(K4, spec, thetas, X, alpha, 500)
 
 
 @pytest.mark.parametrize("B,wb", [(256, 4), (256, 8), (128, 4), (128, 8)])
 def test_wb_gram_kernel_at_the_batch_ask_shape(dev, B, wb):
-    """K4 at (B, 1024, 1024), n_real 1,000: K1's gram bit for bit. The
-    gram wrapper routes these shapes to K4 (wb 8): one K4 launch, no K1
-    launch, the same gram."""
+    """K4 at (B, 1024, 1024), n_real 1,000, against float64 on four rows
+    and against K1. The gram wrapper routes (1024, 15) to K4: one K4
+    launch, no K1 launch, the same gram bit for bit whatever the wb."""
     spec, (thetas, X, alpha) = _batch_ask_grams(dev, B)
-    assert (B, 1024, 15) in gram._K4_SHAPES and gram._K4_WB == 8
+    assert (1024, 15) in gram._K4_ROUTE
     k1, k4 = gram.fused_masked_gram_batch.launches, gram.fused_masked_gram_wb_batch.launches
     routed = gram.fused_masked_gram_batch(spec, thetas, X, alpha, 1000)
     assert gram.fused_masked_gram_batch.launches == k1
     assert gram.fused_masked_gram_wb_batch.launches == k4 + 1
     K4 = gram.fused_masked_gram_wb_batch(spec, thetas, X, alpha, 1000, wb)
     assert torch.equal(routed, K4)
-    assert torch.equal(K4, gram._k1_gram_batch(spec, thetas, X, alpha, 1000))
+    _check_wb_gram(K4, spec, thetas, X, alpha, 1000, rows=[0, B // 3, 2 * B // 3, B - 1])
     assert gram.fused_masked_gram_batch.launches == k1 + 1
 
 
-def test_wb_gram_kernel_restages_a_wide_d(dev):
-    """d = 40 (three 16-wide chunks, re-staged per walker), isotropic and
-    ARD, 7 walkers in blocks of 3: K1's gram bit for bit."""
+@pytest.mark.parametrize("n_pad", [256, 1024])
+def test_wb_gram_kernel_restages_a_wide_d(dev, n_pad):
+    """d = 40 (three chunks of 16 input dimensions), isotropic and ARD, 7
+    walkers in units of 3: X resident in shared memory at n_pad 256, read
+    per unit from global memory at 1,024 (it does not fit); within the
+    float64 tolerance and twice that of K1."""
     rng = np.random.RandomState(9)
-    X = np.full((256, 40), 0.5)
-    X[:230] = rng.uniform(size=(230, 40))
+    n = n_pad - 26
+    X = np.full((n_pad, 40), 0.5)
+    X[:n] = rng.uniform(size=(n, 40))
     X = torch.tensor(X, dtype=torch.float32, device=dev)
-    alpha = torch.full((256,), 1e-6, device=dev)
+    alpha = torch.full((n_pad,), 1e-6, device=dev)
+    assert gram._wb_info(1.5, 7, n_pad, 40, 3)["x_resident"] == (n_pad == 256)
     for n_ls in (1, 40):
         spec = gram.FusedSpec(nu=1.5, n_ls=n_ls, has_const=True, has_white=True)
         thetas = torch.tensor(np.log(1.5) + 0.2 * rng.randn(7, n_ls + 2),
                               dtype=torch.float32, device=dev)
-        K4 = gram.fused_masked_gram_wb_batch(spec, thetas, X, alpha, 230, 3)
-        assert torch.equal(K4, gram.fused_masked_gram_batch(spec, thetas, X, alpha, 230))
+        K4 = gram.fused_masked_gram_wb_batch(spec, thetas, X, alpha, n, 3)
+        _check_wb_gram(K4, spec, thetas, X, alpha, n)
+
+
+@pytest.mark.parametrize("n_pad,resident", [(576, True), (2048, False), (2112, False)])
+def test_wb_gram_kernel_past_what_fits_in_shared_memory(dev, n_pad, resident):
+    """n_pad past the resident X (2,048 and 2,112 at d 15: X read per
+    unit) and n_pad % 128 = 64 (576, 2,112: the last tiles half outside
+    the gram), 3 walkers, nu 1/2, against float64 on every row."""
+    rng = np.random.RandomState(10)
+    n = n_pad - 40
+    X = np.full((n_pad, 15), 0.5)
+    X[:n] = rng.uniform(size=(n, 15))
+    X = torch.tensor(X, dtype=torch.float32, device=dev)
+    alpha = torch.full((n_pad,), 1e-6, device=dev)
+    spec = gram.FusedSpec(nu=0.5, n_ls=15, has_const=True, has_white=True)
+    thetas = torch.tensor(KERNEL.theta0[None] + 0.2 * rng.randn(3, KERNEL.n_theta),
+                          dtype=torch.float32, device=dev)
+    assert gram._wb_info(0.5, 3, n_pad, 15, 2)["x_resident"] == resident
+    K4 = gram.fused_masked_gram_wb_batch(spec, thetas, X, alpha, n, 2)
+    _check_wb_gram(K4, spec, thetas, X, alpha, n, k1=False)
+
+
+def test_wb_gram_kernel_is_deterministic_across_batch_and_wb(dev):
+    """A walker's gram does not depend on how many walkers share the call,
+    on wb, or on which block computed it: bit for bit."""
+    spec = gram.match_fusable(KERNEL)
+    thetas, X, alpha = _gram_inputs(dev, False, B=50)
+    ref = gram.fused_masked_gram_wb_batch(spec, thetas, X, alpha, 500, 1)
+    for wb in (2, 3, 8, 50, 64):
+        assert torch.equal(gram.fused_masked_gram_wb_batch(spec, thetas, X, alpha, 500, wb), ref)
+    for lo, hi, wb in ((0, 7, 2), (20, 33, 4), (49, 50, 1), (10, 35, 8)):
+        part = gram.fused_masked_gram_wb_batch(spec, thetas[lo:hi], X, alpha, 500, wb)
+        assert torch.equal(part, ref[lo:hi]), (lo, hi, wb)
+
+
+@pytest.mark.parametrize("nu", [0.5, 1.5, 2.5, math.inf])
+def test_wb_tf32_control_misses_the_tolerance(dev, nu):
+    """The same kernel with a one-pass TF32 cross term misses the float64
+    tolerance that the 3xTF32 kernel meets, on the same inputs."""
+    spec = gram.FusedSpec(nu=nu, n_ls=15, has_const=True, has_white=True)
+    thetas, X, alpha = _gram_inputs(dev, False, B=8)
+    ref = gram.fused_masked_gram_plain(spec, thetas.double(), X.double(), alpha.double(), 500)
+    tol = 4e-6 * float(ref.abs().max())
+    before = gram.fused_masked_gram_wb_batch.launches
+    control = gram._wb_tf32_control(spec, thetas, X, alpha, 500, 2)
+    assert gram.fused_masked_gram_wb_batch.launches == before
+    K4 = gram.fused_masked_gram_wb_batch(spec, thetas, X, alpha, 500, 2)
+    assert float((K4.double() - ref).abs().max()) <= tol
+    assert not float((control.double() - ref).abs().max()) <= tol
+
+
+def test_gram_route_chooses_k4_by_n_pad_and_d(dev):
+    """fused_masked_gram_batch sends shared X at every (n_pad, d) of the
+    route to K4 for any number of walkers, with the route's wb (the same
+    gram bit for bit), and everything else to K1: per-walker X and an
+    (n_pad, d) off the route."""
+    spec = gram.match_fusable(KERNEL)
+    for (n_pad, d), wb in gram._K4_ROUTE.items():
+        for B in (1, 3, 128):
+            thetas, X, alpha = _gram_inputs(dev, False, B=B, n=n_pad - 12, n_pad=n_pad, d=d)
+            k1, k4 = gram.fused_masked_gram_batch.launches, gram.fused_masked_gram_wb_batch.launches
+            K = gram.fused_masked_gram_batch(spec, thetas, X, alpha, n_pad - 12)
+            assert gram.fused_masked_gram_batch.launches == k1
+            assert gram.fused_masked_gram_wb_batch.launches == k4 + 1
+            assert torch.equal(K, gram.fused_masked_gram_wb_batch(spec, thetas, X, alpha, n_pad - 12, wb))
+    off_route = [(256, 15), (1024, 14)]
+    assert not any(key in gram._K4_ROUTE for key in off_route)
+    isotropic = gram.FusedSpec(nu=2.5, n_ls=1, has_const=True, has_white=True)
+    for n_pad, d in off_route:
+        thetas, X, alpha = _gram_inputs(dev, False, B=4, n=n_pad - 12, n_pad=n_pad, d=d)
+        k1, k4 = gram.fused_masked_gram_batch.launches, gram.fused_masked_gram_wb_batch.launches
+        gram.fused_masked_gram_batch(isotropic, thetas[:, :3], X, alpha, n_pad - 12)
+        assert gram.fused_masked_gram_batch.launches == k1 + 1
+        assert gram.fused_masked_gram_wb_batch.launches == k4
+    thetas, Xw, alpha = _gram_inputs(dev, True, B=4)
+    k1 = gram.fused_masked_gram_batch.launches
+    gram.fused_masked_gram_batch(spec, thetas, Xw, alpha, 500)
+    assert gram.fused_masked_gram_batch.launches == k1 + 1
 
 
 @pytest.mark.parametrize("d", [15, 40])
 def test_gram_kernels_keep_three_blocks_per_sm(dev, d):
-    """The occupancy calculator on the built kernels: K1, K2 and K4 each
-    keep the three resident blocks per SM their launch bounds ask for,
-    for every nu (K4 with X staged once at d 15, re-staged at d 40)."""
-    for kernel in ("K1", "K2", "K4"):
+    """The occupancy calculator on the built kernels: K1 and K2 each keep
+    the three resident blocks per SM their launch bounds ask for, for
+    every nu; K4 is persistent, one 512-thread block per SM, with X
+    resident in shared memory at (1024, 15) and read per unit at d 40."""
+    for kernel in ("K1", "K2"):
         for nu in (0.5, 1.5, 2.5, math.inf):
             assert gram._blocks_per_sm(kernel, nu, d) >= 3, (kernel, nu, d)
+    for nu in (0.5, 1.5, 2.5, math.inf):
+        assert gram._blocks_per_sm("K4", nu, d, n_pad=1024) == 1, (nu, d)
+        info = gram._wb_info(nu, 256, 1024, d, 8)
+        assert info["x_resident"] == (d == 15)
+        assert info["grid"] == min(info["units"], torch.cuda.get_device_properties(0).multi_processor_count)
 
 
 def test_wb_gram_wrapper_refuses_and_launches_one_operation(dev):
@@ -337,7 +453,7 @@ def test_lower_gram_kernel_matches_plain_and_k1(dev, nu, per_walker):
     thetas, X, alpha = _gram_inputs(dev, per_walker)
     before = gram.fused_masked_gram_lower_batch.launches
     K2 = gram.fused_masked_gram_lower_batch(spec, thetas, X, alpha, 500)
-    K1 = gram.fused_masked_gram_batch(spec, thetas, X, alpha, 500)
+    K1 = gram._k1_gram_batch(spec, thetas, X, alpha, 500)
     torch.cuda.synchronize()
     assert gram.fused_masked_gram_lower_batch.launches == before + 1
     ref = gram.fused_masked_gram_lower_plain(spec, thetas.double(), X.double(), alpha.double(), 500)
@@ -607,16 +723,18 @@ def _mesh_inputs(dev, W=16, n=500, n_pad=512, d=15):
 
 def test_walker_sharded_lml_on_the_card(dev):
     """batched_lml over [cuda:0] x 2 against the unsharded call: every
-    shard launches K1 and its K3 bases; the results agree to float32
-    rounding (cuBLAS may pick other GEMM kernels for the smaller batch)."""
+    shard launches the gram the route gives (512, 15) (K4, else K1) and
+    its K3 bases; the results agree to float32 rounding (cuBLAS may pick
+    other GEMM kernels for the smaller batch)."""
     from bask_tpu_torch.parallel.mesh import Mesh
 
     args = _mesh_inputs(dev)
     plain = linalg.batched_lml(KERNEL, *args, n_real=500)
-    k1, k3 = gram.fused_masked_gram_batch.launches, chol_base.chol_inv_base.launches
+    routed = gram.fused_masked_gram_wb_batch if (512, 15) in gram._K4_ROUTE else gram.fused_masked_gram_batch
+    k1, k3 = routed.launches, chol_base.chol_inv_base.launches
     sharded = linalg.batched_lml(KERNEL, *args, n_real=500, mesh=Mesh([dev] * 2))
     torch.cuda.synchronize()
-    assert gram.fused_masked_gram_batch.launches - k1 == 2
+    assert routed.launches - k1 == 2
     assert chol_base.chol_inv_base.launches - k3 == 8
     assert sharded.device == plain.device
     np.testing.assert_allclose(sharded.cpu().numpy(), plain.cpu().numpy(), rtol=1e-6)

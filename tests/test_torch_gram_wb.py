@@ -3,9 +3,11 @@
 against the JAX package's K4, the ``pallas_call`` of
 ``benchmarks/bench_gram_wb.py:59 gram_wb``, rebuilt here from
 ``pallas_gram._pack_params`` / ``._tile_values`` and that script's
-BlockSpecs and run in interpret mode; and the wrapper's refusals. The
-CUDA kernel itself, bit-equal to K1, is tested in
-tests/test_torch_cuda.py."""
+BlockSpecs and run in interpret mode; and the wrapper's refusals. Then
+the arithmetic of the CUDA kernel (``csrc/gram_wb.cu``), emulated in
+torch on the CPU: its cross term in 3xTF32 is within K1's 4e-6 max|K| of
+float64 on the bench dataset for every nu, and one-pass TF32 is not. The
+CUDA kernel itself is tested in tests/test_torch_cuda.py."""
 
 import math
 
@@ -24,6 +26,7 @@ import bask_tpu.ops.pallas_gram as pg  # noqa: E402
 from bask_tpu.ops import kernels as jk  # noqa: E402
 from bask_tpu_torch import convert  # noqa: E402
 from bask_tpu_torch.ops import gram  # noqa: E402
+from bask_tpu_torch.ops import kernels as bk_torch  # noqa: E402
 
 W, N, D = 10, 128, 3
 # Both sides are float32 with the same d2 = |xi|^2 + |xj|^2 - 2 xi.xj and
@@ -139,3 +142,106 @@ def test_wb_gram_refusals(case):
         gram.fused_masked_gram_wb_batch(
             spec, torch.from_numpy(thetas), X_t, torch.from_numpy(alpha), N, wb
         )
+
+
+# -- the kernel's arithmetic, emulated ------------------------------------
+
+
+def _tf32(x):
+    """float32 -> TF32 (10 explicit mantissa bits) by round to nearest,
+    ties away from zero, on the bits, as the kernel forms hi."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_dropped(x):
+    """What the tensor cores read of a float32 given as TF32: the low 13
+    mantissa bits dropped (lo reaches them unrounded)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _emulated_wb_gram(spec, thetas, X, alpha, n_real, passes):
+    """The gram as ``gram_wb.cu`` forms it from float32 inputs: rows
+    centred on the mean of X's first 64 rows and scaled by 1/ls in
+    float32; each point's |x/ls|^2 by a float32 FMA chain over its
+    dimensions; the cross term from the TF32 parts hi = tf32(x) (to
+    nearest) and lo = x - hi (its low 13 bits dropped, as the tensor cores
+    read it) as lo.hi + hi.lo + hi.hi (``passes`` 3) or hi.hi alone (1),
+    the products exact and their sum rounded once to float32
+    (the tensor cores' accumulation taken as exact); d2 = (n_i + n_j) -
+    2 dot in float32, clamped at 0 and exactly 0 on the diagonal; then the
+    Matern, masks and diagonal in float64 (their float32 rounding is K1's
+    and is not what this emulates)."""
+    n_pad, d = X.shape
+    packed = gram._pack_params(spec, thetas, d)
+    amp, noise, ils = packed[:, 0].double(), packed[:, 1].double(), packed[:, 2:]
+    centre = X[:64].mean(0)  # the kernel's centre, up to its summation order
+    xs = (X - centre)[None] * ils[:, None, :]  # (B, n_pad, d) float32
+    norm = torch.zeros(xs.shape[:-1], dtype=torch.float64)
+    for k in range(d):  # fmaf: one rounding per step
+        norm = (norm + xs[..., k].double() ** 2).float().double()
+    hi = _tf32(xs)
+    lo = _tf32_dropped(xs - hi)
+    h, l = hi.double(), lo.double()
+    dot = h @ h.transpose(1, 2)
+    if passes == 3:
+        dot = dot + (l @ h.transpose(1, 2) + h @ l.transpose(1, 2))
+    dot = dot.float().double()
+    d2 = ((norm[:, :, None] + norm[:, None, :]).float().double() - 2.0 * dot).float().double()
+    idx = torch.arange(n_pad)
+    eye = idx[:, None] == idx[None, :]
+    d2 = torch.where(eye, 0.0, torch.clamp(d2, min=0.0))
+    K = amp[:, None, None] * bk_torch.matern_from_d2(d2, spec.nu)
+    real = idx < n_real
+    K = torch.where(real[:, None] & real[None, :], K, 0.0)
+    diag = torch.where(real, K.diagonal(dim1=-2, dim2=-1) + noise[:, None] + alpha.double(), 1.0)
+    return torch.where(eye, torch.diag_embed(diag), K)
+
+
+def _bench_grams(nu, B=8):
+    """The bench dataset (chip_smoke.bench_dataset: n = 500 in 15-D padded
+    to 512 with rows at 0.5), the bench kernel at nu, thetas at theta0 plus
+    0.2 normal noise (seed 21, as chip_smoke phase 11 draws them)."""
+    import chip_smoke
+
+    X, _ = chip_smoke.bench_dataset()
+    kernel = chip_smoke.bench_kernel(bk_torch, nu)
+    rng = np.random.RandomState(21)
+    thetas = torch.tensor(kernel.theta0[None] + 0.2 * rng.randn(B, kernel.n_theta),
+                          dtype=torch.float32)
+    Xt = torch.tensor(chip_smoke.padded(X), dtype=torch.float32)
+    alpha = torch.full((chip_smoke.N_PAD,), 1e-6, dtype=torch.float32)
+    spec = gram.match_fusable(kernel)
+    ref = gram.fused_masked_gram_plain(spec, thetas.double(), Xt.double(), alpha.double(),
+                                       chip_smoke.N_OBS)
+    return (spec, thetas, Xt, alpha, chip_smoke.N_OBS), ref
+
+
+@pytest.mark.parametrize("nu", [0.5, 1.5, 2.5, math.inf])
+def test_3xtf32_cross_term_is_within_the_float64_tolerance(nu):
+    """The kernel's 3xTF32 arithmetic on the bench dataset: within 4e-6
+    max|K| of float64 (the bound K1 is held to), the diagonal exactly
+    amp + noise + alpha where real and 1 where padded."""
+    args, ref = _bench_grams(nu)
+    K = _emulated_wb_gram(*args, passes=3)
+    err = float((K - ref).abs().max())
+    assert err <= 4e-6 * float(ref.abs().max()), err
+    assert torch.equal(K.diagonal(dim1=-2, dim2=-1), ref.diagonal(dim1=-2, dim2=-1))
+
+
+@pytest.mark.parametrize("nu", [0.5, 1.5, 2.5, math.inf])
+def test_one_pass_tf32_misses_the_float64_tolerance(nu):
+    """The control: the cross term in plain TF32 (hi.hi only) misses the
+    same bound on the same data, so the check can tell the two apart."""
+    args, ref = _bench_grams(nu)
+    K = _emulated_wb_gram(*args, passes=1)
+    assert float((K - ref).abs().max()) > 4e-6 * float(ref.abs().max())
+
+
+def test_tf32_control_refuses_cpu_tensors():
+    kernel = _kernel(2.5)
+    thetas, X, alpha = _inputs(kernel, 3, N)
+    spec = gram.match_fusable(convert.kernel_spec(kernel))
+    with pytest.raises(ValueError):
+        gram._wb_tf32_control(spec, torch.from_numpy(thetas), torch.from_numpy(X),
+                              torch.from_numpy(alpha), N, 2)
