@@ -1,8 +1,10 @@
 """PyTorch + CUDA port of bask_tpu (fully-Bayesian Bayesian optimization).
 
 The JAX package ``bask_tpu`` is the reference; this package mirrors its
-module layout and its top-level names, less the TPU-only
-``warmup_optimizer``, ``enable_aot_cache`` and ``disable_aot_cache``. Its
+module layout and its top-level names, plus ``evaluate_acquisitions_fused``.
+``warmup_optimizer`` builds the kernel library and captures the chain's
+CUDA graphs per padding bucket before a loop's first tell;
+``enable_aot_cache`` keeps the built library across processes. Its
 hand-written CUDA kernels (``csrc/``: the gram kernels K1, K2 and K4, the
 base Cholesky K3) build at first use on a CUDA tensor; on the CPU their
 plain PyTorch versions run. Entry points place their tensors on the CUDA
@@ -31,7 +33,9 @@ from .utils.priors import construct_default_kernel, guess_priors, make_roundflat
 from .utils.progress import get_progress_bar
 from .utils.result import create_result, expected_minimum
 from .utils.serialization import load_gpr, load_optimizer, save_gpr, save_optimizer
+from .utils.aot import disable_aot_cache, enable_aot_cache
 from .utils.validation import validate_zeroone
+from .utils.warmup import warmup_optimizer
 
 __version__ = "0.6.0"  # the JAX package's
 
@@ -63,6 +67,9 @@ __all__ = [
     "validate_zeroone",
     "create_result",
     "expected_minimum",
+    "warmup_optimizer",
+    "enable_aot_cache",
+    "disable_aot_cache",
     "__version__",
 ]
 

@@ -81,7 +81,7 @@ __global__ void __launch_bounds__(kThreads, 3)
 gram_kernel(const float* __restrict__ thetas, long long theta_stride,
             Spec spec, const float* __restrict__ X,
             long long x_walker_stride, const float* __restrict__ alpha,
-            int n_real, int n_pad, int d, float* __restrict__ out) {
+            const int* __restrict__ n_real_p, int n_pad, int d, float* __restrict__ out) {
   __shared__ __align__(16) float xi[kChunk][kIStride];
   __shared__ __align__(16) float xj[kChunk][kJStride];
   __shared__ __align__(16) float ni_s[kRows];  // by row slot
@@ -96,6 +96,8 @@ gram_kernel(const float* __restrict__ thetas, long long theta_stride,
   const int warp = tid >> 5;
   const int col = col0 + 4 * lane;  // first of this thread's 4 columns
   const bool col_in = col < n_pad;  // n_pad % 64 == 0: all 4 or none
+  bool n_real_bad;
+  const int n_real = load_n_real(n_real_p, n_pad, n_real_bad);
 
   float* ob = out + (long long)b * n_pad * n_pad;
   if (kLower && (col0 >> 7) > (row0 >> 7)) {  // a strictly upper 128-tile
@@ -225,6 +227,7 @@ gram_kernel(const float* __restrict__ thetas, long long theta_stride,
         const bool real = row_real && c < n_real;
         v[q] = real ? v[q] : 0.0f;
         if (row == c) v[q] = real ? v[q] + noise + alpha[row] : 1.0f;
+        if (n_real_bad) v[q] = nan_f32();
       }
     }
     *reinterpret_cast<float4*>(ob + (long long)row * n_pad + col) =
@@ -243,7 +246,7 @@ auto gram_kernel_for(int nu_code) {
 template <bool kLower>
 int launch_gram(const float* thetas, long long theta_stride, int has_const,
                 int has_white, int n_ls, const float* X,
-                long long x_walker_stride, const float* alpha, int n_real,
+                long long x_walker_stride, const float* alpha, const int* n_real,
                 int B, int n_pad, int d, int nu_code, float* out,
                 void* stream) {
   const int multiple = kLower ? 2 * kRows : kRows;
@@ -262,11 +265,12 @@ int launch_gram(const float* thetas, long long theta_stride, int has_const,
 
 }  // namespace
 
-// K1: n_pad must be a multiple of 64; thetas rows theta_stride floats apart.
+// K1: n_pad must be a multiple of 64; thetas rows theta_stride floats apart;
+// n_real points to one int on the device.
 extern "C" int bask_gram_f32(const float* thetas, long long theta_stride,
                              int has_const, int has_white, int n_ls,
                              const float* X, long long x_walker_stride,
-                             const float* alpha, int n_real, int B, int n_pad,
+                             const float* alpha, const int* n_real, int B, int n_pad,
                              int d, int nu_code, float* out, void* stream) {
   return launch_gram<false>(thetas, theta_stride, has_const, has_white, n_ls,
                             X, x_walker_stride, alpha, n_real, B, n_pad, d,
@@ -277,7 +281,7 @@ extern "C" int bask_gram_f32(const float* thetas, long long theta_stride,
 extern "C" int bask_gram_lower_f32(const float* thetas, long long theta_stride,
                                    int has_const, int has_white, int n_ls,
                                    const float* X, long long x_walker_stride,
-                                   const float* alpha, int n_real, int B,
+                                   const float* alpha, const int* n_real, int B,
                                    int n_pad, int d, int nu_code, float* out,
                                    void* stream) {
   return launch_gram<true>(thetas, theta_stride, has_const, has_white, n_ls,

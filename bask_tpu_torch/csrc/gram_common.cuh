@@ -28,6 +28,20 @@ __device__ __forceinline__ float matern(float d2) {
   return (1.0f + s + s * s * (1.0f / 3.0f)) * expf(-s);
 }
 
+// n_real, read from its 1-element int32 device tensor: a captured launch
+// (a CUDA graph) then computes with whatever count the tensor holds at
+// replay, as the Pallas kernel reads n_real_arr by scalar prefetch. A count
+// outside [0, n_pad] sets ``bad`` and returns 0; the kernels then write NaN
+// in every masked entry, so the LML of such a gram is -inf (an int n_real
+// is range-checked on the host before it becomes a tensor).
+__device__ __forceinline__ int load_n_real(const int* n_real_p, int n_pad, bool& bad) {
+  const int n = __ldg(n_real_p);
+  bad = n < 0 || n > n_pad;
+  return bad ? 0 : n;
+}
+
+__device__ __forceinline__ float nan_f32() { return __int_as_float(0x7fc00000); }
+
 struct Spec {
   int has_const;  // thetas[0] is log amp
   int has_white;  // thetas[off + n_ls] is log noise

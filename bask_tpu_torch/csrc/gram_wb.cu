@@ -218,8 +218,9 @@ __device__ __forceinline__ void bulk_wait_all() {
 template <int kNu, bool kResident, bool kOnePass>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 gram_wb_kernel(const float* __restrict__ thetas, long long theta_stride, Spec spec,
-               const float* __restrict__ X, const float* __restrict__ alpha, int n_real,
-               int n_pad, int d, int B, int wb, const __grid_constant__ CUtensorMap out_map) {
+               const float* __restrict__ X, const float* __restrict__ alpha,
+               const int* __restrict__ n_real_p, int n_pad, int d, int B, int wb,
+               const __grid_constant__ CUtensorMap out_map) {
   extern __shared__ __align__(16) float smem_raw[];
   float* smem = smem_raw + (((1024 - (smem_u32(smem_raw) & 1023)) & 1023) >> 2);
   float* sa = smem;                                  // staging: tile (ti, tj)
@@ -334,6 +335,8 @@ gram_wb_kernel(const float* __restrict__ thetas, long long theta_stride, Spec sp
     return;
   }
 
+  bool n_real_bad;
+  const int n_real = load_n_real(n_real_p, n_pad, n_real_bad);
   write_params(par, walker(u, 0), tid < d + 2 ? fetch_theta(walker(u, 0), tid) : 0.0f);
   if (kResident) mbarrier_wait(x_bar, 0);
   // the centre: the mean of X's first 64 rows, a warp per dimension in a
@@ -471,6 +474,7 @@ gram_wb_kernel(const float* __restrict__ thetas, long long theta_stride, Spec sp
                 const bool real = grow < n_real && gcol < n_real;
                 val = real ? val : 0.0f;
                 if (kind == 2 && grow == gcol) val = real ? val + noise + alpha[grow] : 1.0f;
+                if (n_real_bad) val = nan_f32();
               }
               v[q] = val;
             }
@@ -503,8 +507,8 @@ gram_wb_kernel(const float* __restrict__ thetas, long long theta_stride, Spec sp
   }
 }
 
-using WbKernel = void (*)(const float*, long long, Spec, const float*, const float*, int, int,
-                          int, int, int, const CUtensorMap);
+using WbKernel = void (*)(const float*, long long, Spec, const float*, const float*, const int*,
+                          int, int, int, int, const CUtensorMap);
 
 template <bool kResident, bool kOnePass>
 WbKernel wb_kernel_nu(int nu_code) {
@@ -595,9 +599,9 @@ int encode_out_map(float* out, int B, int n_pad, CUtensorMap* map) {
 
 int launch_wb(bool one_pass, const float* thetas, long long theta_stride, int has_const,
               int has_white, int n_ls, const float* X, long long x_walker_stride,
-              const float* alpha, int n_real, int B, int n_pad, int d, int nu_code, int wb,
-              float* out, void* stream) {
-  if (x_walker_stride != 0 || !(n_ls == 1 || n_ls == d) || n_real < 0 || n_real > n_pad) {
+              const float* alpha, const int* n_real, int B, int n_pad, int d, int nu_code,
+              int wb, float* out, void* stream) {
+  if (x_walker_stride != 0 || !(n_ls == 1 || n_ls == d)) {
     return (int)cudaErrorInvalidValue;
   }
   WbPlan p;
@@ -618,10 +622,11 @@ int launch_wb(bool one_pass, const float* thetas, long long theta_stride, int ha
 }  // namespace
 
 // K4: K1's arguments plus wb (the walkers of a unit), shared X only
-// (x_walker_stride 0, X 16-byte aligned); n_pad a multiple of 64.
+// (x_walker_stride 0, X 16-byte aligned); n_pad a multiple of 64; n_real
+// points to one int on the device.
 extern "C" int bask_gram_wb_f32(const float* thetas, long long theta_stride, int has_const,
                                 int has_white, int n_ls, const float* X,
-                                long long x_walker_stride, const float* alpha, int n_real,
+                                long long x_walker_stride, const float* alpha, const int* n_real,
                                 int B, int n_pad, int d, int nu_code, int wb, float* out,
                                 void* stream) {
   return launch_wb(false, thetas, theta_stride, has_const, has_white, n_ls, X, x_walker_stride,
@@ -633,8 +638,8 @@ extern "C" int bask_gram_wb_f32(const float* thetas, long long theta_stride, int
 extern "C" int bask_gram_wb_tf32_control_f32(const float* thetas, long long theta_stride,
                                              int has_const, int has_white, int n_ls,
                                              const float* X, long long x_walker_stride,
-                                             const float* alpha, int n_real, int B, int n_pad,
-                                             int d, int nu_code, int wb, float* out,
+                                             const float* alpha, const int* n_real, int B,
+                                             int n_pad, int d, int nu_code, int wb, float* out,
                                              void* stream) {
   return launch_wb(true, thetas, theta_stride, has_const, has_white, n_ls, X, x_walker_stride,
                    alpha, n_real, B, n_pad, d, nu_code, wb, out, stream);

@@ -35,8 +35,9 @@ priors), ``ml2_subsample`` (the warm start on a random subset) and
 approximation at the posterior mode). Priors may be torch functions, a
 frozen SciPy distribution's ``logpdf`` (lifted to torch by
 :mod:`bask_tpu_torch.utils.scipy_lift`) or any NumPy callable, which runs
-on the host through an adapter. Models pickle with their tensors as
-NumPy and come back on their device.
+on the host through an adapter, or with ``host_prior_mode="interp"`` as a
+table interpolated on the device (``scipy_lift.tabulate_prior``). Models
+pickle with their tensors as NumPy and come back on their device.
 
 Meshes (:mod:`bask_tpu_torch.parallel.mesh`): ``sample(mesh=)`` and
 ``fit(mesh=)`` shard the walker ensemble over a 1-axis mesh (the ensemble
@@ -47,7 +48,10 @@ row-sharded over the mesh by :mod:`bask_tpu_torch.ops.dist_chol`, and no
 (n_pad, n_pad) gram or factor is ever stored; a 2-axis
 (walkers, rows) row mesh also splits the walkers over its first axis.
 
-Not ported: the tabulated priors of ``host_prior_mode="interp"``.
+On one CUDA card the chain's steps replay CUDA graphs
+(:mod:`bask_tpu_torch.parallel.mcmc`) wherever the configuration allows:
+a kernel of the fused family on float32 data, no mesh, no row mesh and no
+host-adapter prior (:meth:`BayesGPR._chain_graph`).
 """
 
 from __future__ import annotations
@@ -62,8 +66,11 @@ import numpy as np
 import torch
 
 from ..ops import kernels as bk
+from ..ops.gram import _n_real_arg, fused_spec_for
 from ..ops.linalg import batched_lml, cho_solve_masked, masked_cholesky, masked_gram
-from ..parallel.mcmc import _MOVE_PARAMS, _normalize_moves, flatten_chain, run_ensemble
+from ..parallel.mcmc import (
+    _MOVE_PARAMS, ChainGraph, _normalize_moves, flatten_chain, run_ensemble,
+)
 from ..utils.median import geometric_median
 from ..utils.priors import guess_priors
 from ..utils.validation import validate_zeroone
@@ -78,6 +85,33 @@ _MOVE_ALIASES = {
     "demix": (("de", 0.8), ("snooker", 0.2)),
     "tri": (("stretch", 0.5), ("de", 0.4), ("snooker", 0.1)),
 }
+
+
+# Resolved non-torch priors by (prior, joint, host_prior_mode): lifts,
+# vmapped joint priors and host adapters, shared by every model as the JAX
+# package's _HOST_PRIOR_CACHE is, so that two models given the same prior
+# evaluate the same object (a CUDA graph of the chain is keyed by it).
+_PRIOR_CACHE = OrderedDict()
+_HOST_PRIOR_CACHE_MAX = 64
+
+# Warp priors built from an (alphas, betas) pair of elementwise priors, by
+# the pair, so that a chain's warp prior is the same object at every tell.
+_WARP_PRIOR_CACHE = OrderedDict()
+
+# Tabulated interpolants of opaque priors under host_prior_mode="interp",
+# keyed by (callable, range), so that the chain's priors stay
+# identity-stable across tells.
+_INTERP_PRIOR_CACHE = OrderedDict()
+# Margin (in log-theta units) beyond the kernel bounds covered by the
+# table; the chain's priors confine walkers near the bounds, and beyond
+# the table the interpolant extrapolates the edge slopes linearly.
+_INTERP_PRIOR_MARGIN = 5.0
+
+
+def _cache_put(cache, key, value):
+    cache[key] = value
+    while len(cache) > _HOST_PRIOR_CACHE_MAX:
+        cache.popitem(last=False)
 
 
 def _bucket(n: int) -> int:
@@ -469,8 +503,11 @@ class BayesGPR:
     uniformly in the bounds, ``ml2_objective`` (``"lml"`` or ``"map"``),
     ``ml2_subsample`` (optimize on that many random points);
     ``chain_init`` (``"ball"`` or ``"laplace"``) places a cold ensemble.
-    ``copy_X_train`` copies the training arrays. ``host_prior_mode`` is
-    accepted at its default only. ``row_mesh`` (a 1-axis rows or 2-axis
+    ``copy_X_train`` copies the training arrays. ``host_prior_mode``
+    (``"callback"`` or ``"interp"``) says how an elementwise prior that is
+    neither torch nor a liftable SciPy density runs: on the host through an
+    adapter (exact, one sync per log-probability), or as a table on the
+    device (approximate; see :meth:`_interp_prior`). ``row_mesh`` (a 1-axis rows or 2-axis
     (walkers, rows) :class:`~bask_tpu_torch.parallel.mesh.Mesh`) turns on
     the row-sharded huge-n mode with panel width ``row_nb``, the
     trapezoid-only sweep ``row_unroll`` and the ML-II gradient
@@ -514,12 +551,6 @@ class BayesGPR:
                 "callback support) or 'interp' (approximate on-device "
                 f"tabulation), got {host_prior_mode!r}"
             )
-        if host_prior_mode == "interp":
-            raise NotImplementedError(
-                "host_prior_mode='interp' (tabulated priors) is not ported to "
-                "PyTorch (ROADMAP.md queue 1, item 9: tunnel-only code); the "
-                "port runs NumPy priors exactly on the host ('callback')."
-            )
         if row_mesh is not None and len(row_mesh.axis_names) not in (1, 2):
             raise ValueError(
                 "row_mesh must have one (rows) or two (walkers, rows) "
@@ -549,6 +580,7 @@ class BayesGPR:
         self.chain_init = chain_init
         self.ml2_subsample = None if ml2_subsample is None else int(ml2_subsample)
         self.ml2_objective = ml2_objective
+        self.host_prior_mode = host_prior_mode
         self.row_mesh = row_mesh
         self.row_nb = int(row_nb)
         self.row_unroll = bool(row_unroll)
@@ -578,8 +610,6 @@ class BayesGPR:
         self._y_orig: Optional[np.ndarray] = None
         self._noise_vector: Optional[np.ndarray] = None
         self._priors_cache = None
-        # resolved non-torch priors by (prior, joint): lifts and host adapters
-        self._prior_cache = OrderedDict()
         self._noise_zero = False
         self.n_accepted_ = 0
         self.n_proposals_ = 0
@@ -600,7 +630,6 @@ class BayesGPR:
         if isinstance(lml, torch.Tensor):
             state["_consensus_lml_"] = float(lml)
         state["_priors_cache"] = None
-        state["_prior_cache"] = OrderedDict()
         return state
 
     def __setstate__(self, state):
@@ -609,10 +638,10 @@ class BayesGPR:
             ("optimizer", "lbfgs"), ("n_restarts_optimizer", 0), ("copy_X_train", True),
             ("chain_init", "ball"), ("ml2_subsample", None), ("ml2_objective", "lml"),
             ("row_mesh", None), ("row_nb", 256), ("row_unroll", False),
-            ("row_grad_method", "adjoint"),
+            ("row_grad_method", "adjoint"), ("host_prior_mode", "callback"),
         ):
             state.setdefault(name, default)
-        state["_prior_cache"] = OrderedDict()
+        state.pop("_prior_cache", None)  # the per-model cache of earlier pickles
         self.__dict__.update(state)
         for name in ("_data", "_post_data", "_post"):
             if getattr(self, name, None) is not None:
@@ -904,24 +933,28 @@ class BayesGPR:
             return self._priors_cache
         if callable(priors):
             return self._resolve_prior(priors, joint=True)
-        return tuple(self._resolve_prior(p, joint=False) for p in priors)
+        return tuple(self._resolve_prior(p, joint=False, dim=i) for i, p in enumerate(priors))
 
-    def _resolve_prior(self, p, joint: bool):
+    def _resolve_prior(self, p, joint: bool, dim=None):
         """``p`` itself where it maps a tensor of the model's dtype and
         device to a tensor there (elementwise on (W,), or joint on
         (W, n_theta) -> (W,)); a joint torch prior of one theta vector,
         batched by ``torch.vmap``; an exact torch lift of a frozen SciPy
-        ``logpdf``; else a :class:`_HostPrior`, with a warning once per
-        prior (the JAX package's ``_traceable_or_host``)."""
+        ``logpdf``; with ``host_prior_mode="interp"``, an elementwise prior
+        of theta entry ``dim`` tabulated on the device; else a
+        :class:`_HostPrior`, with a warning once per prior (the JAX
+        package's ``_traceable_or_host``)."""
         probe = torch.zeros((2, self._spec.n_theta) if joint else (2,),
                             dtype=self.dtype, device=self.device)
         if _returns_batch(p, probe, 2):
             return p
+        key = (p, joint, self.host_prior_mode)
         try:
-            cached = self._prior_cache.get((p, joint))
+            cached = _PRIOR_CACHE.get(key)
         except TypeError:  # unhashable callable: no cache
-            cached = None
+            key = cached = None
         if cached is not None:
+            _PRIOR_CACHE.move_to_end(key)
             return cached
         resolved = None
         if joint:
@@ -932,6 +965,8 @@ class BayesGPR:
             from ..utils.scipy_lift import lift_scipy_prior
 
             resolved = lift_scipy_prior(p)
+            if resolved is None and self.host_prior_mode == "interp":
+                return self._interp_prior(p, dim)
         if resolved is None:
             warnings.warn(
                 "A gp prior is not a torch function and runs on the host "
@@ -944,13 +979,52 @@ class BayesGPR:
                 stacklevel=4,
             )
             resolved = _HostPrior(p, joint)
-        try:
-            self._prior_cache[(p, joint)] = resolved
-            while len(self._prior_cache) > 64:
-                self._prior_cache.popitem(last=False)
-        except TypeError:
-            pass
+        if key is not None:
+            _cache_put(_PRIOR_CACHE, key, resolved)
         return resolved
+
+    def _interp_prior(self, p, dim):
+        """Tabulated on-device approximation of an opaque prior
+        (``host_prior_mode="interp"``): no host adapter, so the chain stays
+        on the card (and is captured in a CUDA graph). Range = this theta
+        dimension's log-bounds +- ``_INTERP_PRIOR_MARGIN``; linear
+        extrapolation beyond. The table is placed on the model's device."""
+        from ..utils.scipy_lift import tabulate_prior
+
+        bounds = np.asarray(self._spec.bounds, dtype=float)
+        if dim is not None and 0 <= dim < bounds.shape[0]:
+            lo, hi = bounds[dim]
+        else:  # pragma: no cover - elementwise priors always carry dim
+            lo, hi = -12.0, 12.0
+        # infinite log-bounds (fixed-less parameters) cannot be
+        # tabulated: clamp to a wide default range instead
+        if not np.isfinite(lo):
+            lo = -12.0
+        if not np.isfinite(hi):
+            hi = 12.0
+        lo, hi = lo - _INTERP_PRIOR_MARGIN, hi + _INTERP_PRIOR_MARGIN
+        try:
+            key = (p, lo, hi)
+            interp = _INTERP_PRIOR_CACHE.get(key)
+        except TypeError:  # unhashable callable
+            key, interp = None, None
+        if interp is not None:
+            _INTERP_PRIOR_CACHE.move_to_end(key)
+        else:
+            interp, max_err = tabulate_prior(p, lo, hi)
+            warnings.warn(
+                "host_prior_mode='interp': a non-traceable gp prior is "
+                f"approximated by on-device interpolation over [{lo:.2f}, "
+                f"{hi:.2f}] (measured max |Δlog-density| ≈ {max_err:.2e}). "
+                "Chain numerics differ slightly from the exact host prior; "
+                "use host_prior_mode='callback' for exactness.",
+                UserWarning,
+                stacklevel=4,
+            )
+            if key is not None:
+                _cache_put(_INTERP_PRIOR_CACHE, key, interp)
+        interp.table(self.device, torch.promote_types(self.dtype, torch.float32))
+        return interp
 
     def _laplace_positions(self, theta, n_walkers, priors, n_warp):
         """(W, D) cold-start positions from the Laplace approximation
@@ -1021,18 +1095,57 @@ class BayesGPR:
     @staticmethod
     def _resolve_warp_priors(warp_priors):
         """None: :func:`warping.default_warp_log_prior`; a pair of
-        elementwise log-priors (alphas, betas): summed over dimensions; a
-        callable of batched (W, d) log-alphas and log-betas -> (W,)."""
+        elementwise log-priors (alphas, betas): summed over dimensions (one
+        object per pair); a callable of batched (W, d) log-alphas and
+        log-betas -> (W,)."""
         if warp_priors is None:
             return wp.default_warp_log_prior
         if isinstance(warp_priors, (tuple, list)):
-            a_prior, b_prior = warp_priors
+            a_prior, b_prior = key = tuple(warp_priors)
+            try:
+                cached = _WARP_PRIOR_CACHE.get(key)
+            except TypeError:  # unhashable priors: no cache
+                key = cached = None
+            if cached is not None:
+                return cached
 
             def warp_prior(log_alphas, log_betas):
                 return a_prior(log_alphas).sum(-1) + b_prior(log_betas).sum(-1)
 
+            if key is not None:
+                _cache_put(_WARP_PRIOR_CACHE, key, warp_prior)
             return warp_prior
         return warp_priors
+
+    def _chain_graph(self, priors, warp_prior, n_warp, mesh, row_cfg):
+        """The chain's :class:`~bask_tpu_torch.parallel.mcmc.ChainGraph`, or
+        ``None`` where the configuration keeps the chain eager: ``mesh=``
+        or ``row_mesh`` (shards issued from the host), a host-adapter prior
+        (a device-to-host copy per log-probability), or grams outside the
+        fused kernels (a CPU device, float64, a bucket off the kernels'
+        tile, a kernel outside ``Const * (Matern|RBF) [+ White]``; a
+        general-nu Matern syncs the host). The key holds the fused spec and
+        the priors' identities; the entry's log-probability keeps them
+        alive, so no identity is reused while it is cached."""
+        data = self._data
+        spec = fused_spec_for(self._spec, data.X)
+        priors_seq = (priors,) if callable(priors) else tuple(priors)
+        if (mesh is not None or row_cfg is not None or spec is None
+                or any(isinstance(p, _HostPrior) for p in priors_seq)):
+            return None
+        kernel = self._spec
+        n_real = _n_real_arg(len(self._y_orig), data.X.shape[0], data.X.device)
+
+        def build(bufs):
+            X, y, alpha_diag, mask, n_real_buf = bufs
+            return _make_log_prob_batch(
+                kernel, priors, gpc.GPData(X, y, alpha_diag, mask, 0.0, 1.0), n_real_buf,
+                warp_prior, n_warp,
+            )
+
+        key = (spec, tuple(id(p) for p in priors_seq), callable(priors), id(warp_prior), n_warp)
+        return ChainGraph(key=key, inputs=(data.X, data.y, data.alpha_diag, data.mask, n_real),
+                          build=build)
 
     @torch.no_grad()
     def sample(
@@ -1221,6 +1334,7 @@ class BayesGPR:
         chain_dev, final = run_ensemble(
             log_prob, self._tensor(pos), seed, n_steps,
             a=float(kwargs.get("a", 2.0)), moves=moves, progress=progress,
+            graph=self._chain_graph(priors, warp_prior, n_warp, mesh, row_cfg),
         )
         flat = flatten_chain(chain_dev, discard=n_burnin, thin=n_thin)
         kept_steps = chain_dev[n_burnin + n_thin - 1 :: n_thin].cpu().numpy()

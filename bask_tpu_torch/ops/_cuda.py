@@ -3,9 +3,13 @@
 The sources are ``bask_tpu_torch/csrc/*.cu``, each with a plain C
 interface, and the headers they share (``csrc/*.cuh``). At first use each is compiled by its own ``nvcc`` for Hopper
 (``sm_90a``), all started together, and the objects are linked into one
-shared library under ``bask_tpu_torch/_build/``, loaded with ``ctypes``.
-The library's file name carries a hash of the sources, so an edited
-source is rebuilt and a built one is reused. No ``--use_fast_math``: a
+shared library, loaded with ``ctypes``. It lives in the build directory:
+``bask_tpu_torch/_build/``, or the directory that
+:func:`bask_tpu_torch.utils.aot.enable_aot_cache` names. The library's file
+name carries a hash of the sources, the target, the ``nvcc`` version,
+torch's version and CUDA version and the card's compute capability
+(:func:`library_name`), so an edited source or another toolchain or card
+builds anew, and a build for the same ones is reused. No ``--use_fast_math``: a
 kernel takes an approximate operation only where it says so (K1's root,
 K3's pivot rsqrt); ``expf`` stays exact, as the tests' bounds assume.
 
@@ -20,23 +24,26 @@ import ctypes
 import functools
 import hashlib
 import os
+import json
 import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["library", "check", "build_info"]
+__all__ = ["library", "check", "build_info", "library_name", "set_build_dir"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-_BUILD = _PKG / "_build"
+_DEFAULT_BUILD = _PKG / "_build"
+_build_dir = _DEFAULT_BUILD  # where library() looks for the build and puts it
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _GRAM_ARGS = [  # thetas, theta_stride, has_const, has_white, n_ls,
-    # X, x_walker_stride, alpha, n_real, B, n_pad, d, nu_code, out, stream
-    _P, _LL, _I, _I, _I, _P, _LL, _P, _I, _I, _I, _I, _I, _P, _P,
+    # X, x_walker_stride, alpha, n_real (a device int), B, n_pad, d, nu_code,
+    # out, stream
+    _P, _LL, _I, _I, _I, _P, _LL, _P, _P, _I, _I, _I, _I, _P, _P,
 ]
 _SIGNATURES = {
     "bask_gram_f32": _GRAM_ARGS,
@@ -53,7 +60,8 @@ _SIGNATURES = {
     "bask_chol_inv_f32": [_P, _LL, _LL, _P, _P, _I, _I, _P],
 }
 
-# filled by library(): build seconds and nvcc's resource report
+# filled by library(): seconds to build or load, whether nvcc built it, the
+# library's path, and nvcc's resource report
 build_info: dict = {}
 
 
@@ -65,21 +73,66 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-@functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The compiled kernel library, built on first call."""
-    sources = sorted(_CSRC.glob("*.cu"))
+def _nvcc_version() -> str:
+    """The toolkit's nvcc version from its ``version.json``; where the
+    toolkit has none, the nvcc binary's resolved path, size and
+    modification time. No process is started, so a process that finds its
+    library built runs no nvcc at all."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    try:
+        with open(Path(CUDA_HOME or "") / "version.json") as f:
+            return json.load(f)["cuda_nvcc"]["version"]
+    except (OSError, KeyError, TypeError, ValueError):
+        nvcc = Path(_nvcc()).resolve()
+        st = nvcc.stat()
+        return f"{nvcc}:{st.st_size}:{st.st_mtime_ns}"
+
+
+def _toolchain() -> list:
+    """What a build depends on besides the sources: the nvcc version,
+    torch's version and CUDA version, the current card's compute
+    capability (the JAX package's ``aot._fingerprint`` keys its executables
+    on the toolchain and the device the same way)."""
+    import torch
+
+    major, minor = torch.cuda.get_device_capability()
+    return [_nvcc_version(), torch.__version__, str(torch.version.cuda), f"sm_{major}{minor}"]
+
+
+def library_name() -> str:
+    """The library's file name: a hash of the sources and headers, the
+    target and :func:`_toolchain`."""
     digest = hashlib.sha256()
-    for src in sources + sorted(_CSRC.glob("*.cuh")):
+    for src in sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    digest.update(_ARCH.encode())
-    so = _BUILD / f"libbask_kernels_{digest.hexdigest()[:16]}.so"
+    for part in [_ARCH, *_toolchain()]:
+        digest.update(b"\0" + part.encode())
+    return f"libbask_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def set_build_dir(path=None) -> None:
+    """Look for the library in ``path``, and build it there, from the next
+    :func:`library` load on (``None``: ``bask_tpu_torch/_build/``). A
+    library this process has loaded stays loaded."""
+    global _build_dir
+    _build_dir = _DEFAULT_BUILD if path is None else Path(path)
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The compiled kernel library, loaded from the build directory, or
+    built there first where it is missing."""
+    sources = sorted(_CSRC.glob("*.cu"))
+    name = library_name()
+    so = _build_dir / name
     t0 = time.perf_counter()
-    if not so.exists():
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
-        objs = [_BUILD / f"{src.stem}.{tag}.o" for src in sources]
+    build_info["built"] = not so.exists()
+    if build_info["built"]:
+        _build_dir.mkdir(parents=True, exist_ok=True)
+        tag = f"{so.stem}.{os.getpid()}"
+        objs = [_build_dir / f"{src.stem}.{tag}.o" for src in sources]
         nvcc = _nvcc()
         # one nvcc per source, all running at once
         procs = [
@@ -111,6 +164,7 @@ def library() -> ctypes.CDLL:
         build_info["ptxas"] = "\n".join(err for _, _, err, _ in reports)
     build_info["seconds"] = time.perf_counter() - t0
     build_info["library"] = so.name
+    build_info["path"] = str(so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -73,6 +73,7 @@ JAX package packs them) stays for the plain version and the tests.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -219,13 +220,15 @@ def fused_masked_gram_lower_plain(spec: FusedSpec, thetas, X, alpha_diag, n_real
     return torch.where(_upper_tiles(n_pad, X.device), 0.0, K)
 
 
-def fused_masked_gram_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real: int):
+def fused_masked_gram_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real):
     """Masked grams for a batch of walkers: (B, n_pad, n_pad) float32.
 
     ``thetas``: (B, n_theta) log-params in the fused layout; ``X``:
     (n_pad, d) shared or (B, n_pad, d) per-walker inputs; ``alpha_diag``:
-    (n_pad,) real-point jitter; ``n_real``: the number of unpadded points
-    (an int: it is a kernel argument).
+    (n_pad,) real-point jitter; ``n_real``: the number of unpadded points,
+    a Python int or a 1-element int32 tensor on ``X``'s device (the
+    kernels read it from device memory, so a CUDA graph that captured the
+    launch serves every count its tensor is given; see :func:`_n_real_arg`).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the
     kernel (and raises if it cannot): K1, or K4 for shared X at an
@@ -242,7 +245,7 @@ def fused_masked_gram_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real: int)
 fused_masked_gram_batch.launches = 0  # K1's launches
 
 
-def _k1_gram_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real: int):
+def _k1_gram_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real):
     """K1 itself at every shape (no K4 route), counted in
     ``fused_masked_gram_batch.launches``: for the checks and timings that
     hold K1, or K4 against it. A CPU tensor runs the plain version."""
@@ -253,7 +256,7 @@ def _k1_gram_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real: int):
     return out
 
 
-def fused_masked_gram_lower_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real: int):
+def fused_masked_gram_lower_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real):
     """K2: the lower 128-tiles of :func:`fused_masked_gram_batch`, zeros
     above; the same arguments, with ``n_pad`` a multiple of 128.
 
@@ -270,7 +273,7 @@ def fused_masked_gram_lower_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real
 fused_masked_gram_lower_batch.launches = 0
 
 
-def fused_masked_gram_wb_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real: int, wb: int):
+def fused_masked_gram_wb_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real, wb: int):
     """K4: :func:`fused_masked_gram_batch` for shared ``X`` (n_pad, d),
     with ``wb`` walkers per work unit (the last unit takes the ``B % wb``
     left over). The same function as K1, within its float64 tolerance;
@@ -297,7 +300,7 @@ def _check_wb(X, wb):
         raise ValueError(f"wb={wb}: K4 needs at least one walker per unit")
 
 
-def _wb_tf32_control(spec: FusedSpec, thetas, X, alpha_diag, n_real: int, wb: int):
+def _wb_tf32_control(spec: FusedSpec, thetas, X, alpha_diag, n_real, wb: int):
     """K4 built with its cross term in one-pass TF32 (no lo products): a
     control that the precision checks must reject. Card only, uncounted,
     on no path of the package."""
@@ -359,8 +362,7 @@ def _launch(entry: str, multiple: int, spec, thetas, X, alpha_diag, n_real, wb=N
         raise ValueError(f"alpha_diag must be ({n_pad},), got {tuple(alpha_diag.shape)}")
     if thetas.device != X.device or alpha_diag.device != X.device:
         raise ValueError("thetas, X and alpha_diag must be on one CUDA device")
-    if not 0 <= int(n_real) <= n_pad:
-        raise ValueError(f"n_real={n_real} outside [0, {n_pad}]")
+    n_real = _n_real_arg(n_real, n_pad, X.device)
     n_theta = int(spec.has_const) + spec.n_ls + int(spec.has_white)
     if spec.n_ls not in (1, d) or thetas.ndim != 2 or thetas.shape[1] < n_theta:
         raise ValueError(
@@ -387,7 +389,7 @@ def _launch(entry: str, multiple: int, spec, thetas, X, alpha_diag, n_real, wb=N
         X.data_ptr(),
         ctypes.c_longlong(n_pad * d if X.ndim == 3 else 0),
         alpha_diag.data_ptr(),
-        int(n_real),
+        n_real.data_ptr(),
         B,
         n_pad,
         d,
@@ -397,3 +399,32 @@ def _launch(entry: str, multiple: int, spec, thetas, X, alpha_diag, n_real, wb=N
         args.append(wb)
     check(getattr(library(), entry)(*args, out.data_ptr(), stream), entry)
     return out
+
+
+def _n_real_arg(n_real, n_pad: int, device):
+    """``n_real`` as the kernels take it, a 1-element int32 tensor on
+    ``device``. A tensor is passed through (its value is never read on the
+    host; the kernels write NaN where it lies outside [0, n_pad]). An int is
+    range-checked here and becomes a cached tensor, made outside any graph
+    capture and never written, so an eager call issues no copy for it."""
+    if isinstance(n_real, torch.Tensor):
+        if n_real.device != device or n_real.dtype != torch.int32 or n_real.numel() != 1:
+            raise ValueError(
+                f"n_real must be a 1-element int32 tensor on {device}, got "
+                f"{tuple(n_real.shape)} {n_real.dtype} on {n_real.device}"
+            )
+        return n_real
+    n = int(n_real)
+    if not 0 <= n <= n_pad:
+        raise ValueError(f"n_real={n} outside [0, {n_pad}]")
+    return _n_real_tensor(device, n)
+
+
+@functools.lru_cache(maxsize=None)  # at most n_pad + 1 counts a device
+def _n_real_tensor(device, n: int):
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"n_real={n} is a Python int inside a CUDA graph capture: pass it "
+            "as a 1-element int32 device tensor, whose value a replay reads"
+        )
+    return torch.full((1,), n, dtype=torch.int32, device=device)

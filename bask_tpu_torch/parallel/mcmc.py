@@ -11,7 +11,21 @@ the loop never waits on a device-to-host copy. Accept/reject stays a
 
 Every half-update takes its random numbers pre-drawn (``draw_*``), in the
 layout in which the JAX package draws them, so a test can feed the
-randoms JAX drew to both packages and compare the updates exactly.
+randoms JAX drew to both packages and compare the updates exactly. A step
+draws all of its randoms first, in the order the halves use them, then
+applies the move.
+
+CUDA graphs of the step (:class:`ChainGraph`) take the part of JAX's
+compiled scan body. ``run_ensemble(graph=...)`` captures each move of the
+chain once per configuration in a graph and replays it per step: the
+graph reads its data (training inputs and targets, jitter, mask, and
+``n_real`` as a device scalar) from buffers that each run refills, so one
+capture serves every tell inside a padding bucket. The captures live in a
+module-level cache (:data:`_GRAPH_CACHE`), as JAX's jit cache is global:
+a warm-up clone's chain (``utils.warmup``) and the real loop's share
+them. The randoms are drawn outside the graph, by the chain's own
+generator, into the graph's static buffers, so a replayed chain equals
+the eager chain bit for bit.
 
 Detailed balance: the stretch factor is z = ((a-1)u + 1)^2 / a, with
 acceptance factor z^(D-1) * exp(lp(prop) - lp(curr)); DE proposals are
@@ -23,6 +37,7 @@ False).
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -43,6 +58,9 @@ __all__ = [
     "run_ensemble",
     "flatten_chain",
     "validate_walker_count",
+    "ChainGraph",
+    "CHAIN_GRAPHS",
+    "graph_stats",
 ]
 
 
@@ -61,12 +79,44 @@ def init_ensemble(log_prob_fn: Callable, pos) -> EnsembleState:
     )
 
 
-def _uniform(gen, h, like):
-    return torch.rand(h, generator=gen, dtype=like.dtype, device=like.device)
+def _half_specs(base, h, c, D):
+    """The randoms of one half-update of move ``base`` (``h`` walkers
+    against ``c``), in the order the update reads them: ("i", shape, high)
+    integers in [0, high), ("u", shape) uniforms, ("n", shape) normals."""
+    if base == "stretch":  # partners, u, u_accept
+        return [("i", (h,), c), ("u", (h,), None), ("u", (h,), None)]
+    if base == "de":  # j, k_raw, eps, u_accept
+        return [("i", (h,), c), ("i", (h,), c - 1), ("n", (h, D), None), ("u", (h,), None)]
+    # snooker: iz, i1_raw, i2_raw, u_accept
+    return [("i", (h,), c), ("i", (h,), c - 1), ("i", (h,), c - 2), ("u", (h,), None)]
 
 
-def _randint(gen, hi, h, like):
-    return torch.randint(0, hi, (h,), generator=gen, device=like.device)
+def _step_specs(base, W, D):
+    """The randoms of one full step at (W, D): DE's step-wide jump
+    uniform, then the first half's, then the second half's."""
+    half = W // 2
+    jump = [("u", (), None)] if base == "de" else []
+    return jump + _half_specs(base, half, W - half, D) + _half_specs(base, W - half, half, D)
+
+
+def _draw(gen, specs, like, out=None):
+    """The randoms of ``specs`` from ``gen`` on ``like``'s device (floats
+    in its dtype), each written into a new tensor or into ``out``'s."""
+    drawn = []
+    for k, (kind, shape, high) in enumerate(specs):
+        if out is None:
+            t = torch.empty(shape, dtype=torch.int64 if kind == "i" else like.dtype,
+                            device=like.device)
+        else:
+            t = out[k]
+        if kind == "i":
+            torch.randint(0, high, shape, generator=gen, out=t)
+        elif kind == "u":
+            torch.rand(shape, generator=gen, out=t)
+        else:
+            torch.randn(shape, generator=gen, out=t)
+        drawn.append(t)
+    return drawn
 
 
 def _accept(active, lp_active, prop, lp_prop, log_ratio, u_acc):
@@ -78,11 +128,7 @@ def _accept(active, lp_active, prop, lp_prop, log_ratio, u_acc):
 
 def draw_stretch(gen, h, c, like):
     """(partners, u, u_accept): the draws of one stretch half-update."""
-    return (
-        _randint(gen, c, h, like),
-        _uniform(gen, h, like),
-        _uniform(gen, h, like),
-    )
+    return tuple(_draw(gen, _half_specs("stretch", h, c, like.shape[1]), like))
 
 
 def stretch_half_update(log_prob_fn, active, lp_active, other, draws, a):
@@ -99,12 +145,7 @@ def stretch_half_update(log_prob_fn, active, lp_active, other, draws, a):
 def draw_de(gen, h, c, like):
     """(j, k_raw, eps, u_accept): the draws of one DE half-update; the
     noise is standard normal (scaled by sigma in the update)."""
-    j = _randint(gen, c, h, like)
-    k = _randint(gen, c - 1, h, like)
-    eps = torch.randn(
-        h, like.shape[1], generator=gen, dtype=like.dtype, device=like.device
-    )
-    return j, k, eps, _uniform(gen, h, like)
+    return tuple(_draw(gen, _half_specs("de", h, c, like.shape[1]), like))
 
 
 def de_half_update(log_prob_fn, active, lp_active, other, draws, gamma, sigma):
@@ -119,12 +160,7 @@ def de_half_update(log_prob_fn, active, lp_active, other, draws, gamma, sigma):
 
 def draw_snooker(gen, h, c, like):
     """(iz, i1_raw, i2_raw, u_accept): the draws of one snooker update."""
-    return (
-        _randint(gen, c, h, like),
-        _randint(gen, c - 1, h, like),
-        _randint(gen, c - 2, h, like),
-        _uniform(gen, h, like),
-    )
+    return tuple(_draw(gen, _half_specs("snooker", h, c, like.shape[1]), like))
 
 
 def snooker_half_update(log_prob_fn, active, lp_active, other, draws, gamma_s):
@@ -224,16 +260,18 @@ def _normalize_moves(moves):
 
 
 def _move_step(log_prob_fn, name, a):
-    """One full ensemble step of move ``name``: (state, gen) -> state."""
+    """One full ensemble step of move ``name``, as (specs, apply):
+    ``specs(W, D)`` lists the step's randoms (:func:`_step_specs`) and
+    ``apply(pos, log_prob, draws)`` -> (pos, log_prob, accepted moves)
+    updates the two halves in turn with them."""
     base, p = _parse_move(name)
+    n_half = len(_half_specs(base, 1, 1, 1))
 
-    def step(state, gen):
-        pos, lp = state.pos, state.log_prob
+    def apply(pos, lp, draws):
         W, D = pos.shape
         half = W // 2
         if base == "stretch":
             a_eff = p.get("a", a)
-            draw = draw_stretch
 
             def update(act, lpa, oth, dr):
                 return stretch_half_update(log_prob_fn, act, lpa, oth, dr, a_eff)
@@ -242,35 +280,23 @@ def _move_step(log_prob_fn, name, a):
             gamma0 = p.get("gamma", 2.38 / (2.0 * D) ** 0.5)
             sigma = p.get("sigma", 1e-5)
             # the step-wide full-difference "mode jump" with prob. jump
-            jump = _uniform(gen, (), pos) < p.get("jump", 0.1)
+            jump, draws = draws[0] < p.get("jump", 0.1), draws[1:]
             gamma = torch.where(jump, 1.0, gamma0).to(pos.dtype)
-            draw = draw_de
 
             def update(act, lpa, oth, dr):
                 return de_half_update(log_prob_fn, act, lpa, oth, dr, gamma, sigma)
 
         else:
             gamma_s = p.get("gammas", 1.7)
-            draw = draw_snooker
 
             def update(act, lpa, oth, dr):
                 return snooker_half_update(log_prob_fn, act, lpa, oth, dr, gamma_s)
 
-        first, second = pos[:half], pos[half:]
-        lp1, lp2 = lp[:half], lp[half:]
-        first, lp1, acc0 = update(
-            first, lp1, second, draw(gen, half, W - half, pos)
-        )
-        second, lp2, acc1 = update(
-            second, lp2, first, draw(gen, W - half, half, pos)
-        )
-        return EnsembleState(
-            pos=torch.cat([first, second]),
-            log_prob=torch.cat([lp1, lp2]),
-            accepted=state.accepted + acc0 + acc1,
-        )
+        first, lp1, acc0 = update(pos[:half], lp[:half], pos[half:], draws[:n_half])
+        second, lp2, acc1 = update(pos[half:], lp[half:], first, draws[n_half:])
+        return torch.cat([first, second]), torch.cat([lp1, lp2]), acc0 + acc1
 
-    return step
+    return (lambda W, D: _step_specs(base, W, D)), apply
 
 
 def make_step_fn(log_prob_fn: Callable, a: float = 2.0, moves=None):
@@ -287,17 +313,206 @@ def make_step_fn(log_prob_fn: Callable, a: float = 2.0, moves=None):
     branches = [_move_step(log_prob_fn, n, a) for n in names]
 
     def step(state, move_index, gen):
-        return branches[move_index](state, gen)
+        specs, apply = branches[move_index]
+        pos = state.pos
+        new_pos, new_lp, acc = apply(pos, state.log_prob, _draw(gen, specs(*pos.shape), pos))
+        return EnsembleState(pos=new_pos, log_prob=new_lp, accepted=state.accepted + acc)
 
     return step, weights
 
 
 _PROGRESS_CHUNK = 8  # steps per progress-bar tick, as the JAX package
 
+# "off" runs every chain eagerly, graph or not (an A/B switch for timing)
+CHAIN_GRAPHS = "on"
+# graphs captured and replayed in this process (a capture is per
+# configuration and move; a replay is one step)
+graph_stats = {"captures": 0, "replays": 0}
+_GRAPH_CACHE_MAX = 8  # configurations kept; the oldest is freed first
+_WARM_STEPS = 3  # eager steps on the capture stream before a capture
+
+
+class ChainGraph(NamedTuple):
+    """A log-probability that :func:`run_ensemble` may capture in CUDA
+    graphs.
+
+    ``inputs`` are the tensors it reads (for the GP: X, y, the jitter, the
+    mask, ``n_real`` as a 1-element int32 tensor), ``inputs[0]`` the
+    (n_pad, d) training inputs; ``build(buffers)`` returns the batched
+    log-probability over buffers shaped like them; ``key`` (hashable)
+    names everything else its captured work depends on (the fused spec,
+    the priors, the warp)."""
+
+    key: tuple
+    inputs: tuple
+    build: Callable
+
+
+_GRAPH_CACHE: "OrderedDict[tuple, _ChainEntry]" = OrderedDict()
+_CAPTURE_STREAMS: dict = {}
+
+
+def _entry_key(graph: ChainGraph, W: int, D: int, dtype, device) -> tuple:
+    """The cache key of a configuration: everything that changes the work
+    a step's graph captured, besides the move (:func:`_branch_key`)."""
+    from ..ops import gram
+
+    n_pad_d = tuple(graph.inputs[0].shape[-2:])
+    return (
+        str(device), dtype, int(W), int(D),
+        tuple((tuple(t.shape), t.dtype) for t in graph.inputs),
+        graph.key,
+        gram.LOWER_GRAM, gram._K4_ROUTE.get(n_pad_d),
+        torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32,
+    )
+
+
+def _branch_key(name: str, a: float) -> tuple:
+    """A move of the mixture with its parameters (``a``: stretch's default)."""
+    return (name, float(a))
+
+
+def _launch_counters():
+    """The kernel wrappers' launch counts, which a replay adds to."""
+    from ..ops import chol_base, gram
+
+    return (gram.fused_masked_gram_batch, gram.fused_masked_gram_lower_batch,
+            gram.fused_masked_gram_wb_batch, chol_base.chol_inv_base)
+
+
+class _Branch(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    specs: list  # the step's randoms, drawn into ``draws`` before a replay
+    draws: list
+    launches: tuple  # each counter's launches per replay
+
+
+class _ChainEntry:
+    """One configuration's buffers and its moves' graphs (one memory pool)."""
+
+    def __init__(self, graph: ChainGraph, W: int, D: int, dtype, device):
+        self.inputs = tuple(torch.empty_like(t) for t in graph.inputs)
+        self.log_prob = graph.build(self.inputs)
+        self.pos = torch.empty((W, D), dtype=dtype, device=device)
+        self.lp = torch.empty((W,), dtype=dtype, device=device)
+        self.accepted = torch.zeros((), dtype=torch.int64, device=device)
+        self.pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+        self.branches: dict = {}
+
+    def capture(self, name: str, a: float) -> _Branch:
+        """The step of move ``name`` in a graph (:func:`_capture_step`),
+        with its draw buffers and its launches per replay. The step leaves
+        its result in the state buffers, so replays chain."""
+        specs_of, apply = _move_step(self.log_prob, name, a)
+        specs = specs_of(*self.pos.shape)
+        draws = _draw(torch.Generator(device=self.pos.device).manual_seed(0), specs, self.pos)
+        warm_gen = torch.Generator(device=self.pos.device).manual_seed(1)
+
+        def body():
+            pos, lp, acc = apply(self.pos, self.lp, draws)
+            self.pos.copy_(pos)
+            self.lp.copy_(lp)
+            self.accepted.add_(acc)
+
+        def warm():  # throwaway randoms; the state buffers change
+            _draw(warm_gen, specs, self.pos, out=draws)
+            body()
+
+        counters = _launch_counters()
+        try:
+            graph, launches = _capture_step(body, warm, self.pool, self.pos.device, counters)
+        except Exception as e:
+            raise RuntimeError(
+                f"the chain step of move {name!r} could not be captured in a CUDA "
+                f"graph ({type(e).__name__}: {e}); a prior or kernel that syncs with "
+                "the host cannot run in a graph (mcmc.CHAIN_GRAPHS = 'off' runs "
+                "every chain eagerly)"
+            ) from e
+        graph_stats["captures"] += 1
+        return _Branch(graph, specs, draws, launches)
+
+
+def _capture_step(body, warm, pool, device, counters):
+    """Run ``warm`` ``_WARM_STEPS`` times on the device's capture stream
+    (the first uses of cuBLAS handles and their workspace, K4's tensor-map
+    encoder and the allocator's blocks happen there, not in the capture),
+    then capture ``body`` on that stream into a new graph of ``pool``.
+    Returns the graph and the launches each counter saw in the capture
+    (its replays add them). The counters are put back as they were before
+    the warm-up: the capture launches nothing, and the warm-up steps are
+    the capture's cost, not steps of the chain."""
+    if device.type != "cuda":
+        raise ValueError(f"a graphed chain runs on a CUDA device; got {device}")
+    start = [f.launches for f in counters]
+    stream = _CAPTURE_STREAMS.setdefault(device, torch.cuda.Stream(device))
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        for _ in range(_WARM_STEPS):
+            warm()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    before = [f.launches for f in counters]
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, pool=pool, stream=stream):
+            body()
+    finally:
+        launches = tuple(f.launches - b for f, b in zip(counters, before))
+        for f, n in zip(counters, start):
+            f.launches = n
+    return graph, launches
+
+
+def _chain_entry(graph: ChainGraph, W: int, D: int, dtype, device) -> _ChainEntry:
+    key = _entry_key(graph, W, D, dtype, device)
+    entry = _GRAPH_CACHE.get(key)
+    if entry is None:
+        entry = _GRAPH_CACHE[key] = _ChainEntry(graph, W, D, dtype, device)
+        while len(_GRAPH_CACHE) > _GRAPH_CACHE_MAX:
+            _GRAPH_CACHE.popitem(last=False)
+    _GRAPH_CACHE.move_to_end(key)
+    return entry
+
+
+def _run_graphed(graph, log_prob_fn, pos0, gen, names, a, move_idx, pbar):
+    """:func:`run_ensemble`'s loop on replayed graphs: the same randoms
+    from ``gen`` in the same order, the same operations per step."""
+    W, D = pos0.shape
+    device = pos0.device
+    entry = _chain_entry(graph, W, D, pos0.dtype, device)
+    for buf, src in zip(entry.inputs, graph.inputs):
+        buf.copy_(src)
+    lp0 = log_prob_fn(pos0)
+    keys = [_branch_key(n, a) for n in names]
+    for m in sorted(set(move_idx.tolist())):
+        if keys[m] not in entry.branches:
+            entry.pos.copy_(pos0)
+            entry.lp.copy_(lp0)
+            entry.branches[keys[m]] = entry.capture(names[m], a)
+    entry.pos.copy_(pos0)
+    entry.lp.copy_(lp0)
+    entry.accepted.zero_()
+    counters = _launch_counters()
+    n_steps = len(move_idx)
+    chain = torch.empty((n_steps, W, D), dtype=pos0.dtype, device=device)
+    for i in range(n_steps):
+        br = entry.branches[keys[move_idx[i]]]
+        _draw(gen, br.specs, entry.pos, out=br.draws)
+        br.graph.replay()
+        chain[i].copy_(entry.pos)
+        for f, n in zip(counters, br.launches):
+            f.launches += n
+        if (i + 1) % _PROGRESS_CHUNK == 0 or i + 1 == n_steps:
+            pbar.update((i % _PROGRESS_CHUNK) + 1)
+    graph_stats["replays"] += n_steps
+    pbar.close()
+    return chain, EnsembleState(
+        pos=entry.pos.clone(), log_prob=entry.lp.clone(), accepted=entry.accepted.clone()
+    )
+
 
 def run_ensemble(
     log_prob_fn: Callable, pos0, seed: int, n_steps: int, a: float = 2.0, moves=None,
-    progress: bool = False,
+    progress: bool = False, graph: ChainGraph | None = None,
 ):
     """Run ``n_steps`` full ensemble steps from ``pos0``.
 
@@ -309,14 +524,23 @@ def run_ensemble(
     (:func:`~bask_tpu_torch.utils.progress.get_progress_bar`) every 8
     steps, as queued (the device may still run them); the chain is the
     same either way.
+
+    ``graph`` (a :class:`ChainGraph` of the same log-probability, CUDA
+    tensors) replays each step from a CUDA graph of its move, captured on
+    the configuration's first run; the chain is the eager one bit for bit.
+    A step that cannot be captured or replayed raises. With
+    :data:`CHAIN_GRAPHS` ``"off"`` the graph is ignored.
     """
     validate_walker_count(pos0.shape[0], moves)
-    step, weights = make_step_fn(log_prob_fn, a=a, moves=moves)
+    names, weights = (("stretch",), (1.0,)) if moves is None else _normalize_moves(moves)
     move_idx = np.random.RandomState(seed).choice(len(weights), size=n_steps, p=weights)
     gen = torch.Generator(device=pos0.device)
     gen.manual_seed(int(seed))
-    state = init_ensemble(log_prob_fn, pos0)
     pbar = get_progress_bar(progress, n_steps)
+    if graph is not None and CHAIN_GRAPHS == "on":
+        return _run_graphed(graph, log_prob_fn, pos0, gen, names, a, move_idx, pbar)
+    step, _ = make_step_fn(log_prob_fn, a=a, moves=moves)
+    state = init_ensemble(log_prob_fn, pos0)
     chain = []
     for i in range(n_steps):
         state = step(state, int(move_idx[i]), gen)

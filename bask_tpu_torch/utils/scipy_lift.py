@@ -17,8 +17,10 @@ return ``None`` and the caller falls back to a host adapter. Outside the
 support the lift is ``-inf`` as in SciPy; on a closed boundary point the
 two may differ (a set of measure zero).
 
-The tabulated approximation of opaque priors
-(``tabulate_prior``/``host_prior_mode="interp"``) is not ported.
+:func:`tabulate_prior` is the approximate way for any other scalar
+callable (``BayesGPR(host_prior_mode="interp")``): a table of its values
+on the device, interpolated linearly, so that the chain needs no host
+adapter (and can be captured in a CUDA graph).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 from scipy.special import betaln as _h_betaln
 from scipy.special import gammaln as _h_gammaln
 
-__all__ = ["lift_scipy_prior"]
+__all__ = ["lift_scipy_prior", "tabulate_prior"]
 
 _SQRT2PI_LOG = 0.5 * math.log(2.0 * math.pi)
 
@@ -330,3 +332,81 @@ def lift_scipy_prior(p):
         lifted = logpdf
     lifted.__wrapped_scipy__ = (family, shapes, loc, scale, p.__name__)
     return lifted
+
+
+# Log-densities below this are "effectively rejected" anyway (exp
+# underflows long before); flooring -inf/NaN knots here keeps the
+# interpolation finite while preserving MCMC rejection behavior (the JAX
+# package's value).
+_TABLE_FLOOR = -1e12
+
+
+class _TabulatedPrior:
+    """The piecewise-linear interpolant of :func:`tabulate_prior`: the
+    float64 knot values, placed on a device in a dtype at first use there
+    (:meth:`table`), or ahead of it by the model that resolves the prior,
+    so that no host-to-device copy happens in a chain step."""
+
+    def __init__(self, vals, lo, hi, n_knots, max_err):
+        self.vals = vals
+        self.lo, self.h, self.n_knots = lo, (hi - lo) / (n_knots - 1), n_knots
+        self.__tabulated__ = (lo, hi, n_knots, max_err)
+        self._tables = {}
+
+    def table(self, device, dtype):
+        key = (torch.device(device), dtype)
+        if key not in self._tables:
+            self._tables[key] = torch.as_tensor(self.vals, dtype=dtype, device=device)
+        return self._tables[key]
+
+    def __call__(self, x):
+        dtype = x.dtype if x.is_floating_point() else torch.float32
+        table = self.table(x.device, torch.promote_types(dtype, torch.float32))
+        t = (x - self.lo) / self.h
+        i = torch.clamp(torch.floor(t), 0, self.n_knots - 2)
+        frac = t - i  # unbounded beyond the range: edge-slope extrapolation
+        i = i.long()
+        v0 = table[i]
+        return v0 + frac * (table[i + 1] - v0)
+
+
+def tabulate_prior(p, lo, hi, n_knots=16385):
+    """Approximate an opaque scalar log-density by interpolation on the
+    device.
+
+    Samples ``p`` on the host over ``n_knots`` equispaced points of
+    ``[lo, hi]`` and returns ``(interp, max_err)``: a torch function,
+    piecewise linear between the knots and extrapolated linearly beyond
+    the range with the edge segments' slopes, and the measured max absolute
+    log-density error against ``p`` at segment midpoints (a subsample of
+    512). ``-inf``/NaN knots are floored to a very negative finite value so
+    the interpolation stays finite (the chain still rejects there).
+    The JAX package's table, floor, error and extrapolation; approximate
+    by construction, so opt in via ``BayesGPR(host_prior_mode="interp")``.
+    """
+    lo, hi = float(lo), float(hi)
+    if not (np.isfinite(lo) and np.isfinite(hi)):
+        raise ValueError(
+            f"tabulate_prior needs finite bounds, got [{lo}, {hi}]: "
+            "infinite kernel bounds (e.g. fixed-less parameters) must be "
+            "clamped by the caller"
+        )
+    if not (hi > lo) or n_knots < 3:
+        raise ValueError("tabulate_prior needs hi > lo and n_knots >= 3")
+    xs = np.linspace(lo, hi, n_knots)
+    vec = np.vectorize(p, otypes=[np.float64])
+    vals = vec(xs)
+    vals = np.where(np.isnan(vals), -np.inf, vals)
+    vals = np.maximum(vals, _TABLE_FLOOR)
+    h = (hi - lo) / (n_knots - 1)
+
+    # measured error at a midpoint subsample (the worst case for
+    # piecewise-linear interpolation of a smooth function)
+    mid_idx = np.linspace(0, n_knots - 2, min(512, n_knots - 1)).astype(int)
+    mids = xs[mid_idx] + 0.5 * h
+    exact = vec(mids)
+    exact = np.maximum(np.where(np.isnan(exact), -np.inf, exact), _TABLE_FLOOR)
+    approx = 0.5 * (vals[mid_idx] + vals[mid_idx + 1])
+    finite = np.isfinite(exact) & (exact > _TABLE_FLOOR / 2)
+    max_err = float(np.max(np.abs(approx[finite] - exact[finite]))) if finite.any() else 0.0
+    return _TabulatedPrior(vals, lo, hi, n_knots, max_err), max_err

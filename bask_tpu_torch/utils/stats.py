@@ -67,11 +67,13 @@ def halfnorm_logpdf(x, scale=1.0):
 
 
 def invgamma_logpdf(x, a, scale=1.0):
-    """log pdf of the inverse-gamma distribution (-inf at x <= 0)."""
-    a = torch.as_tensor(a, dtype=x.dtype, device=x.device)
-    scale = torch.as_tensor(scale, dtype=x.dtype, device=x.device)
+    """log pdf of the inverse-gamma distribution (-inf at x <= 0). Float
+    ``a`` and ``scale`` stay on the host, as in :func:`norm_logpdf` (a
+    copy to the card would also break a CUDA-graph capture)."""
+    log_scale = torch.log(scale) if torch.is_tensor(scale) else math.log(scale)
+    lgamma_a = torch.lgamma(a) if torch.is_tensor(a) else math.lgamma(a)
     return (
-        a * torch.log(scale) - torch.lgamma(a) - (a + 1.0) * torch.log(x) - scale / x
+        a * log_scale - lgamma_a - (a + 1.0) * torch.log(x) - scale / x
         + torch.where(x > 0, 0.0, -math.inf)
     )
 

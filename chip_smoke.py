@@ -107,9 +107,27 @@ Phases, each printing one result line:
    warm start and a 16-walker x 6-step chain, ``predict`` at 1,000
    queries and 4 draws from given normals against the dense models, each
    within ``RM_ERR_MULTIPLE`` times the dense float32 model's own error.
+13. the production-loop tooling: (a) chain ms per step with the step
+   replayed from CUDA graphs against the eager step, in turns, on phase
+   6's unwarped model (K4 + K3) and phase 7's warped model with
+   ``LOWER_GRAM = "on"`` (K2 + K3), and the card's busy share in each;
+   (b) the replayed chains bit-equal to the eager chains (same seed,
+   demix moves), one replay under the profiler naming its kernels; (c)
+   the first tell of a fresh process (a child of this one, running
+   ``python3 chip_smoke.py --first-tell cold|warm CACHE``) without and
+   with ``warmup_optimizer``; (d) no graph captured after the warmup; (e)
+   those children load the kernel library from a cache that this process
+   filled with ``enable_aot_cache`` after its build, running no nvcc; (f)
+   their warm tells; (g) a chain with an opaque NumPy prior tabulated on
+   the device (``host_prior_mode="interp"``), graphed, beside the same
+   chain eager and the lifted prior's, its log posterior held to the exact
+   one. Since this slice every chain of phases 6-11 and 13 on one card
+   replays graphs (phase 10's host-adapter chains and general kernels,
+   and phase 12's meshes, stay eager).
 
-The ``launches`` of the kernel table sum phases 7-12, each counted from 0
-just before the phase drives its path and read just after it.
+The ``launches`` of the kernel table sum phases 7-13, each counted from 0
+just before the phase drives its path and read just after it; a replayed
+step counts the launches its graph captured.
 
 No failure is caught: a phase that fails ends the run with a non-zero
 exit. Without a CUDA card it exits non-zero at once. The last three
@@ -289,6 +307,9 @@ def phase_device():
         allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         matmul_precision=torch.get_float32_matmul_precision(),
         build_s=build_s,
+        built=_cuda.build_info["built"],
+        library=_cuda.build_info["library"],
+        toolchain=_cuda._toolchain(),
         ptxas=ptxas,
     )
     return smi
@@ -684,11 +705,12 @@ def _shared_x_gram(n_pad=N_PAD):
     return "K4" if (n_pad, N_DIM) in gram._K4_ROUTE else "K1"
 
 
-def _drive_optimizer(dev, gp_kwargs=None):
+def _drive_optimizer(dev, gp_kwargs=None, before_tell=None):
     """Build the Optimizer on the bench problem, zero the launch counts,
-    then a cold tell of N_OBS points and three warm ask/tell rounds (PVRS).
-    Returns (optimizer, cold seconds, the cold tell's R-hat result, warm
-    seconds, asks)."""
+    then a cold tell of N_OBS points and three warm ask/tell rounds (PVRS);
+    ``before_tell(opt)`` runs between the Optimizer's construction and the
+    cold tell. Returns (optimizer, cold seconds, the cold tell's R-hat
+    result, warm seconds, asks)."""
     import torch
 
     from bask_tpu_torch import Optimizer
@@ -704,6 +726,8 @@ def _drive_optimizer(dev, gp_kwargs=None):
         random_state=0, gp_kwargs=gp_kwargs, device=dev, dtype=torch.float32,
         gp_sample_kwargs={"max_extensions": COLD_LEGS, "extension_steps": 300},
     )
+    if before_tell is not None:
+        before_tell(opt)
     torch.cuda.reset_peak_memory_stats(dev)
     for fn in _kernel_counters().values():
         fn.launches = 0
@@ -859,7 +883,7 @@ def phase_warped_optimizer(dev):
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"warped optimizer phase failed: {failed}")
-    return launches
+    return launches, opt
 
 
 def _counts():
@@ -2247,9 +2271,288 @@ def phase_mesh(dev):
     return launches, parts["(b) rows"]["k3_row_block"]
 
 
+# -- phase 13: graphed chains, warmup, the library cache, tabulated priors --
+
+CHAIN_STEPS = 40  # steps of each timed chain of phase 13 (a)
+CHAIN_RUNS = 2  # times the four turns (eager, graphed, graphed, eager) run
+
+
+def _chain_parts(gp, priors=None):
+    """(log-probability, ChainGraph, positions, moves) of ``gp``'s chain
+    as ``BayesGPR.sample`` builds them (demix, the positions ``pos_``)."""
+    from bask_tpu_torch.models import bayesgpr as tbg
+
+    resolved = gp._resolve_priors(priors)
+    warp = gp._resolve_warp_priors(None)
+    n_warp = gp._n_warp()
+    log_prob = tbg._make_log_prob_batch(gp._spec, resolved, gp._data, len(gp._y_orig), warp,
+                                        n_warp)
+    graph = gp._chain_graph(resolved, warp, n_warp, None, None)
+    return log_prob, graph, gp._tensor(gp.pos_), tbg._MOVE_ALIASES["demix"]
+
+
+def _run_chain(parts, graphed, steps, seed=5):
+    from bask_tpu_torch.parallel import mcmc
+
+    log_prob, graph, pos, moves = parts
+    old, mcmc.CHAIN_GRAPHS = mcmc.CHAIN_GRAPHS, ("on" if graphed else "off")
+    try:
+        return mcmc.run_ensemble(log_prob, pos, seed, steps, moves=moves, graph=graph)
+    finally:
+        mcmc.CHAIN_GRAPHS = old
+
+
+def _chain_ms(parts, graphed, steps=CHAIN_STEPS):
+    """Milliseconds per step of one chain of ``steps`` steps, host clock to
+    a synchronize (the chain's eager first log-probability included)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _run_chain(parts, graphed, steps)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / steps
+
+
+def _profiled_retry(fn, tries=3):
+    """``profiled(fn, wall=True)``, repeated where the session recorded no
+    device operation (PERF.md section 7); (ops, seconds) of the last try."""
+    for _ in range(tries):
+        _, ops, seconds = profiled(fn, wall=True)
+        if ops:
+            break
+    return ops, seconds
+
+
+def _busy(parts, graphed, steps=10):
+    """(the card's busy share: device time over wall time, device
+    operations per step) of a ``steps``-step chain under the profiler."""
+    ops, seconds = _profiled_retry(lambda: _run_chain(parts, graphed, steps))
+    return sum(e.device_time for e in ops) / (1e6 * seconds), len(ops) / steps
+
+
+def _replay_kernels(parts, move="de"):
+    """The device operations of one replay of the graph of ``move`` of
+    this chain's configuration: (count, kernel names)."""
+    from bask_tpu_torch.parallel import mcmc
+
+    _, graph, pos, _ = parts
+    key = mcmc._entry_key(graph, *pos.shape, pos.dtype, pos.device)
+    branch = mcmc._GRAPH_CACHE[key].branches[mcmc._branch_key(move, 2.0)]
+    ops, _ = _profiled_retry(branch.graph.replay)
+    return len(ops), sorted({e.name for e in ops})
+
+
+def first_tell_child(mode: str, cache: str) -> int:
+    """``python3 chip_smoke.py --first-tell cold|warm CACHE``: a fresh
+    process that loads the kernel library from the cache ``CACHE``
+    (counting nvcc runs), then, with ``warm``, runs ``warmup_optimizer``
+    for the bucket of N_OBS, then the bench problem's cold tell and three
+    warm tells (``_drive_optimizer``); prints one JSON line with the
+    seconds and the graphs captured at each stage."""
+    import torch
+
+    from bask_tpu_torch import enable_aot_cache, warmup_optimizer
+    from bask_tpu_torch.ops import _cuda
+    from bask_tpu_torch.parallel import mcmc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    nvcc_runs = []
+    real_popen, real_run = _cuda.subprocess.Popen, _cuda.subprocess.run
+
+    class Counted:  # _cuda's view of subprocess: every nvcc it starts is counted
+        def __getattr__(self, name):
+            return getattr(subprocess, name)
+
+        @staticmethod
+        def Popen(args, *a, **k):
+            nvcc_runs.append(args[0])
+            return real_popen(args, *a, **k)
+
+        @staticmethod
+        def run(args, *a, **k):
+            nvcc_runs.append(args[0])
+            return real_run(args, *a, **k)
+
+    _cuda.subprocess = Counted()
+    enable_aot_cache(cache)
+    torch.zeros(1, device=dev)  # the CUDA context, outside the load
+    t0 = time.perf_counter()
+    _cuda.library()
+    load_s = time.perf_counter() - t0
+    stages = {}
+
+    def warm_up(opt):
+        t0 = time.perf_counter()
+        warmup_optimizer(opt, [N_OBS])
+        torch.cuda.synchronize()
+        stages["warmup_s"] = time.perf_counter() - t0
+        stages["captures_in_warmup"] = mcmc.graph_stats["captures"]
+
+    _, cold_s, _, warm_s, _ = _drive_optimizer(dev, before_tell=warm_up if mode == "warm" else None)
+    print("first tell child: " + json.dumps(dict(
+        mode=mode, library_built=_cuda.build_info["built"], library_load_s=load_s,
+        nvcc_runs=len(nvcc_runs), first_tell_s=cold_s, warm_tell_s=warm_s,
+        captures=mcmc.graph_stats["captures"], replays=mcmc.graph_stats["replays"], **stages,
+    )), flush=True)
+    return 0
+
+
+def _first_tell(mode, cache):
+    out = subprocess.run([sys.executable, __file__, "--first-tell", mode, cache],
+                         capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("first tell child: ")]
+    if out.returncode != 0 or not lines:
+        raise AssertionError(f"first-tell child ({mode}) failed ({out.returncode}):\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    return json.loads(lines[-1][len("first tell child: "):])
+
+
+def phase_tooling(opt, warped_opt, dev):
+    """(a) chain ms per step, graphed against eager in turns, on phase 6's
+    unwarped model (K4 + K3) and phase 7's warped one with LOWER_GRAM on
+    (K2 + K3), at the north-star shape, with the card's busy share; (b)
+    the replayed chains bit-equal to the eager ones (same seed, demix),
+    and one replay of each under the profiler naming its kernels; (c), (d)
+    and (f) in two fresh processes: the first tell (the cold tell) with and
+    without ``warmup_optimizer``, no graph captured after the warmup, the
+    warm tells with graphs; (e) those processes load the kernel library
+    from the cache this process filled by ``enable_aot_cache`` (after its
+    phase 1 build), running no nvcc; (g) the chain with an opaque prior
+    tabulated on the device (``host_prior_mode="interp"``), graphed, beside
+    the same chain eager and the lifted prior's. Returns the graphed
+    chains' launch counts (replays times launches per capture)."""
+    import shutil
+    import tempfile
+    import warnings
+
+    import scipy.stats as sps
+    import torch
+
+    from bask_tpu_torch import disable_aot_cache, enable_aot_cache
+    from bask_tpu_torch.ops import _cuda, gram
+    from bask_tpu_torch.parallel import mcmc
+
+    built = dict(_cuda.build_info)
+    configs = {"unwarped": (opt.gp, "off"), "warped, LOWER_GRAM on": (warped_opt.gp, "on")}
+    chains, equal, launches = {}, {}, {k: 0 for k in _kernel_counters()}
+    for name, (gp, lower) in configs.items():
+        gram.LOWER_GRAM = lower
+        try:
+            parts = _chain_parts(gp)
+            _uncounted(lambda: _run_chain(parts, False, 2))  # allocator, handles
+            before = _counts()
+            _run_chain(parts, True, 2)  # captures here, unless an earlier phase did
+            turns = {"eager": [], "graphed": []}
+            for _ in range(CHAIN_RUNS):
+                for kind in ("eager", "graphed", "graphed", "eager"):
+                    graphed = kind == "graphed"
+                    run = lambda: _chain_ms(parts, graphed)  # noqa: E731
+                    turns[kind].append(run() if graphed else _uncounted(run))
+            c_g, f_g = _run_chain(parts, True, 20, seed=9)
+            c_e, f_e = _uncounted(lambda: _run_chain(parts, False, 20, seed=9))
+            equal[name] = bool(torch.equal(c_g, c_e) and torch.equal(f_g.log_prob, f_e.log_prob)
+                               and int(f_g.accepted) == int(f_e.accepted))
+            busy_g, ops_g = _busy(parts, True)
+            busy_e, ops_e = _uncounted(lambda: _busy(parts, False))
+            n_ops, names = _replay_kernels(parts)
+            for k, v in _since(before).items():
+                launches[k] += v
+        finally:
+            gram.LOWER_GRAM = "off"
+        chains[name] = {
+            "path": "graphed" if parts[1] is not None else "eager (no graph for this model)",
+            "ms_per_step": {k: [float(np.median(v)), v] for k, v in turns.items()},
+            "speedup": float(np.median(turns["eager"]) / np.median(turns["graphed"])),
+            "busy_share": {"graphed": busy_g, "eager": busy_e},
+            "device_ops_per_step": {"graphed": ops_g, "eager": ops_e},
+            "replay_device_ops": n_ops, "replay_kernels": names,
+        }
+
+    # (c)-(f): the library cache, filled from this process's loaded build
+    cache = tempfile.mkdtemp(prefix="bask_aot_")
+    try:
+        enable_aot_cache(cache)
+        children = {mode: _first_tell(mode, cache) for mode in ("cold", "warm")}
+    finally:
+        disable_aot_cache()
+        shutil.rmtree(cache, ignore_errors=True)
+    warm_child = children["warm"]
+
+    # (g) an opaque NumPy prior tabulated on the device, on phase 6's model
+    gp = opt.gp
+    opaque = [lambda x: -0.125 * float(np.square(x))] * gp._spec.n_theta
+    lifted = [sps.norm(0.0, 2.0).logpdf] * gp._spec.n_theta
+    mode, gp.host_prior_mode = gp.host_prior_mode, "interp"
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            tab_parts = _chain_parts(gp, opaque)
+            max_err = sum(p.__tabulated__[3] for p in gp._resolve_priors(opaque))
+            gp.host_prior_mode = "callback"
+            host_parts = _chain_parts(gp, opaque)
+    finally:
+        gp.host_prior_mode = mode
+    lift_parts = _chain_parts(gp, lifted)
+    before = _counts()
+    _run_chain(tab_parts, True, 2)
+    _run_chain(lift_parts, True, 2)
+    tabulated = {
+        "path": "graphed" if tab_parts[1] is not None else "eager",
+        "host_adapter_path": "graphed" if host_parts[1] is not None else "eager",
+        "ms_per_step_graphed": _chain_ms(tab_parts, True),
+        "ms_per_step_eager": _uncounted(lambda: _chain_ms(tab_parts, False)),
+        "lifted_ms_per_step_graphed": _chain_ms(lift_parts, True),
+    }
+    for k, v in _since(before).items():
+        launches[k] += v
+    # the tabulated log posterior against the exact one (host adapter) at
+    # the model's walkers: within the tables' summed midpoint errors (twice)
+    # and the float32 rounding of the sums (8 spacings of the largest value)
+    lp_tab, lp_host = tab_parts[0](tab_parts[2]), host_parts[0](tab_parts[2])
+    tabulated["max_abs_logprob_diff_vs_host"] = float((lp_tab - lp_host).abs().max())
+    tabulated["limit"] = 2.0 * max_err + 8.0 * 2.0**-23 * float(lp_host.abs().max())
+    report(
+        "phase 13 graphed chains, warmup, library cache, tabulated priors",
+        chains=chains, replay_bit_equal=equal, first_tell=children,
+        library={"phase 1": {"built": built.get("built"), "seconds": built.get("seconds")},
+                 "cache load in a second process": {
+                     "built": warm_child["library_built"], "seconds": warm_child["library_load_s"],
+                     "nvcc_runs": warm_child["nvcc_runs"]}},
+        tabulated_prior=tabulated, launches=launches, graph_stats=dict(mcmc.graph_stats),
+    )
+    checks = {
+        "both chains graphed": all(c["path"] == "graphed" for c in chains.values()),
+        "replays bit-equal to the eager chains": all(equal.values()),
+        "unwarped replay runs K4 and K3": any("gram_wb_kernel" in n for n in
+                                              chains["unwarped"]["replay_kernels"])
+        and any("chol_inv_kernel" in n for n in chains["unwarped"]["replay_kernels"]),
+        "warped replay runs K2 and K3": any("gram_kernel" in n and "gram_wb" not in n
+                                            for n in chains["warped, LOWER_GRAM on"]["replay_kernels"])
+        and any("chol_inv_kernel" in n for n in chains["warped, LOWER_GRAM on"]["replay_kernels"]),
+        "no capture after warmup_optimizer": warm_child["captures"]
+        == warm_child["captures_in_warmup"],
+        "the children load the cached library without nvcc": all(
+            not c["library_built"] and c["nvcc_runs"] == 0 for c in children.values()),
+        "tabulated chain graphed, host adapter eager": tabulated["path"] == "graphed"
+        and tabulated["host_adapter_path"] == "eager",
+        "tabulated log-prob near the exact one": tabulated["max_abs_logprob_diff_vs_host"]
+        <= tabulated["limit"],
+        "K4 and K3 replayed": launches["K4"] > 0 and launches["K3"] > 0 and launches["K2"] > 0,
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 13 failed: {failed}")
+    return launches
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 4 and sys.argv[1] == "--first-tell":
+        return first_tell_child(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device available", file=sys.stderr)
         return 1
@@ -2276,12 +2579,14 @@ def main() -> int:
     k4, k4_path = timed("11", phase_wb_gram, dev)
     timed("5", phase_lml, dev)
     opt = timed("6", phase_optimizer, dev)
-    by_path = {"phase 7 warped tell": timed("7", phase_warped_optimizer, dev)}
+    by_path = {}
+    by_path["phase 7 warped tell"], warped_opt = timed("7", phase_warped_optimizer, dev)
     by_path["phase 8 batch ask"], k1_batch, k4_batch, k3_batch = timed("8", phase_batch_ask, dev)
     by_path["phase 9 polish"] = timed("9", phase_stopping_polish, opt, dev)
     by_path["phase 10 fit options"] = timed("10", phase_fit_options, opt, dev)
     by_path["phase 11 bench_gram_wb"] = k4_path
     by_path["phase 12 meshes"], k3_rows = timed("12", phase_mesh, dev)
+    by_path["phase 13 graphed chains"] = timed("13", phase_tooling, opt, warped_opt, dev)
     report("phase seconds", **seconds, total=sum(seconds.values()))
 
     def launches(key):

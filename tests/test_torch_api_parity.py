@@ -16,9 +16,9 @@ import bask_tpu  # noqa: E402
 import bask_tpu_torch  # noqa: E402
 from bask_tpu_torch.parallel import mcmc  # noqa: E402
 
-# JAX's names that exist only for the TPU (ROADMAP queue 1 item 9), and
-# the port's one extra
-TPU_ONLY = {"warmup_optimizer", "enable_aot_cache", "disable_aot_cache"}
+# JAX's names the port lacks (none since warmup_optimizer and the AOT
+# cache were ported), and the port's one extra
+TPU_ONLY = set()
 PORT_ONLY = {"evaluate_acquisitions_fused"}
 
 

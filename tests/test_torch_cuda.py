@@ -21,7 +21,11 @@ LML (the routed gram and K3 in each shard), the row-sharded
 LML at n = 2,048 on 4 strips against float64 (K3 on every diagonal
 block), -inf for a non-PD gram, the row sweep's (256, 256) block on
 two K3 bases against K3's plain version, and row mode at float64 (its
-blocks by cholesky_ex) against the dense float64 model.
+blocks by cholesky_ex) against the dense float64 model; K1, K2 and K4
+with ``n_real`` as a device scalar bit-equal to the int, the chain
+replayed from CUDA graphs bit-equal to the eager chain (K4, K2 on warped
+X, K1, and bucket 64's cholesky_ex) with the same launch counts, and no
+graph captured after ``warmup_optimizer``.
 
 Every test here needs a CUDA card and skips without one. The file
 imports no JAX, so it also runs where only the port is installed:
@@ -849,3 +853,100 @@ def test_row_mode_at_float64_on_the_card(dev):
     m_d, s_d = dense.predict(Xq, return_std=True)
     np.testing.assert_allclose(m_r, m_d, rtol=1e-8, atol=1e-9)
     np.testing.assert_allclose(s_r, s_d, rtol=1e-7, atol=1e-9)
+
+
+# -- n_real as a device scalar, and the chain's CUDA graphs --------------------
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K4"])
+@pytest.mark.parametrize("n_real", [0, 1, 449, 500, 512])
+def test_device_n_real_is_the_int_bit_for_bit(dev, kernel, n_real):
+    """Each gram kernel reads n_real from a 1-element int32 device tensor:
+    the same gram bit for bit as with the int (ragged, empty and full real
+    blocks); a count outside [0, n_pad] gives a gram of NaN in its
+    computed tiles, where an int is refused on the host."""
+    spec = gram.match_fusable(KERNEL)
+    thetas, X, alpha = _gram_inputs(dev, False)
+    fn = {"K1": gram._k1_gram_batch, "K2": gram.fused_masked_gram_lower_batch,
+          "K4": lambda *a: gram.fused_masked_gram_wb_batch(*a, 2)}[kernel]
+    as_int = fn(spec, thetas, X, alpha, n_real)
+    as_tensor = fn(spec, thetas, X, alpha, torch.tensor([n_real], dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    assert torch.equal(as_int, as_tensor)
+    if n_real == 512:
+        bad = fn(spec, thetas, X, alpha, torch.tensor([513], dtype=torch.int32, device=dev))
+        computed = ~_upper_tiles(512, dev) if kernel == "K2" else torch.ones_like(bad[0], dtype=torch.bool)
+        assert torch.isnan(bad[:, computed]).all()
+        with pytest.raises(ValueError, match="n_real"):
+            fn(spec, thetas, X, alpha, 513)
+        with pytest.raises(ValueError, match="int32"):
+            fn(spec, thetas, X, alpha, torch.tensor([500], device=dev))
+
+
+def _chain_model(dev, warp, n, d, W, graphs, lower="off", steps=12):
+    """A fit (no warm start: theta0) of 6 x ``W`` samples with demix moves,
+    the chain graphed or eager; (chain, accepted, launches, captures)."""
+    from bask_tpu_torch import BayesGPR
+    from bask_tpu_torch.parallel import mcmc
+
+    rng = np.random.RandomState(1)
+    X = rng.uniform(size=(n, d))
+    y = ((X - 0.4) ** 2).sum(1) + 0.05 * rng.randn(n)
+    counters = (gram.fused_masked_gram_batch, gram.fused_masked_gram_lower_batch,
+                gram.fused_masked_gram_wb_batch, chol_base.chol_inv_base)
+    before = [f.launches for f in counters]
+    captures = mcmc.graph_stats["captures"]
+    old = (mcmc.CHAIN_GRAPHS, gram.LOWER_GRAM)
+    mcmc.CHAIN_GRAPHS, gram.LOWER_GRAM = ("on" if graphs else "off"), lower
+    try:
+        gp = BayesGPR(bk.ConstantKernel(1.0, (0.1, 2.0)) * bk.Matern((0.3,) * d, (0.05, 2.0)),
+                      random_state=3, device=dev, warp_inputs=warp, optimizer=None,
+                      moves="demix")
+        gp.fit(X, y, n_desired_samples=steps * W, n_walkers_per_thread=W, n_burnin=0,
+               warn_rhat=None, progress=False)
+    finally:
+        mcmc.CHAIN_GRAPHS, gram.LOWER_GRAM = old
+    torch.cuda.synchronize()
+    return (gp.chain_, gp.n_accepted_, [f.launches - b for f, b in zip(counters, before)],
+            mcmc.graph_stats["captures"] - captures)
+
+
+@pytest.mark.parametrize("warp,n,d,lower", [
+    (False, 500, 15, "off"),  # K4 + K3
+    (True, 500, 15, "on"),  # K2 + K3 on warped X
+    (True, 120, 4, "off"),  # K1 + K3
+    (False, 40, 3, "off"),  # bucket 64: K1 + cholesky_ex
+])
+def test_graphed_chain_is_the_eager_chain(dev, warp, n, d, lower):
+    """The replayed chain equals the eager chain bit for bit, with the
+    same acceptances and the same kernel launches counted (replays times
+    launches per capture); a second run of the configuration captures
+    nothing new."""
+    eager = _chain_model(dev, warp, n, d, 20, graphs=False, lower=lower)
+    graphed = _chain_model(dev, warp, n, d, 20, graphs=True, lower=lower)
+    assert np.array_equal(graphed[0], eager[0])
+    assert graphed[1] == eager[1] and graphed[2] == eager[2]
+    assert eager[3] == 0
+    again = _chain_model(dev, warp, n, d, 20, graphs=True, lower=lower)
+    assert np.array_equal(again[0], eager[0]) and again[3] == 0
+
+
+def test_no_capture_after_warmup(dev):
+    """After ``warmup_optimizer`` the first tell and three warm tells of
+    the real loop capture no graph (tests/test_warmup.py's case)."""
+    from bask_tpu_torch import Optimizer, warmup_optimizer
+    from bask_tpu_torch.parallel import mcmc
+
+    opt = Optimizer(dimensions=[(0.0, 1.0)] * 3, n_points=64, n_initial_points=2,
+                    init_strategy="random", acq_func="ei", random_state=1, device=dev,
+                    gp_sample_kwargs={"n_walkers_per_thread": 16})
+    assert warmup_optimizer(opt, (2, 3, 4, 5, 6), gp_samples=20, gp_burnin=2,
+                            n_samples=3) == [64]
+    captures = mcmc.graph_stats["captures"]
+    rng = np.random.RandomState(0)
+    for _ in range(5):
+        x = opt.ask()
+        opt.tell(x, float(np.sin(3 * x[0]) + 0.05 * rng.randn()), n_samples=3,
+                 gp_samples=20, gp_burnin=2)
+    assert opt.gp.chain_ is not None
+    assert mcmc.graph_stats["captures"] == captures

@@ -5,8 +5,11 @@ The probe that failed before the port resolved its priors: 20 points in
 .logpdf] * 4`` (the port raised ``TypeError`` where the JAX package
 fits). Frozen SciPy log-densities are lifted to torch and match SciPy for
 all 17 families; any other NumPy callable runs on the host through an
-adapter, elementwise or joint, through fit, sample and the Optimizer."""
+adapter, elementwise or joint, through fit, sample and the Optimizer, or
+with ``host_prior_mode="interp"`` as JAX's table interpolated on the
+device."""
 
+import math
 import warnings
 
 import numpy as np
@@ -21,9 +24,10 @@ import jax.numpy as jnp  # noqa: E402
 from bask_tpu.models import bayesgpr as jbg  # noqa: E402
 from bask_tpu.ops import kernels as jk  # noqa: E402
 from bask_tpu.utils.scipy_lift import lift_scipy_prior as jax_lift  # noqa: E402
+from bask_tpu.utils.scipy_lift import tabulate_prior as jax_tabulate  # noqa: E402
 from bask_tpu_torch import BayesGPR, Optimizer, convert  # noqa: E402
 from bask_tpu_torch.models import bayesgpr as tbg  # noqa: E402
-from bask_tpu_torch.utils.scipy_lift import lift_scipy_prior  # noqa: E402
+from bask_tpu_torch.utils.scipy_lift import lift_scipy_prior, tabulate_prior  # noqa: E402
 
 # family -> (frozen dist, probe grid with out-of-support points), as
 # tests/test_scipy_lift.py
@@ -165,6 +169,76 @@ def test_log_prob_batch_matches_jax_for_lifted_and_host_priors():
         np.testing.assert_allclose(ours, theirs, rtol=1e-9)
 
 
+def _opaque_norm(x):  # scalar-only (math), so neither torch nor a SciPy lift takes it
+    return -0.5 * math.pow((x - 0.3) / 2.0, 2) - math.log(2.0 * math.sqrt(2.0 * math.pi))
+
+
+def _opaque_halfnorm(x):  # -inf below 0: the table's floor
+    return math.log(math.sqrt(2.0 / math.pi) / 2.0) - x * x / 8.0 if x >= 0 else -math.inf
+
+
+@pytest.mark.parametrize("prior, lo, hi, n_knots", [
+    (_opaque_norm, -9.0, 7.0, 16385),
+    (_opaque_halfnorm, -2.0, 6.0, 1025),
+])
+def test_tabulate_prior_matches_jax(prior, lo, hi, n_knots):
+    """The same table as JAX's on the same callable: ``max_err`` equal,
+    and the interpolant equal at knots, between them and beyond both ends
+    (edge-slope extrapolation), in float64, within 1e-12 relative of the
+    values (the two differ only in the rounding of t = (x - lo) / h)."""
+    interp, err = tabulate_prior(prior, lo, hi, n_knots)
+    j_interp, j_err = jax_tabulate(prior, lo, hi, n_knots)
+    assert err == j_err
+    assert interp.__tabulated__ == j_interp.__tabulated__
+    xs = np.concatenate([np.linspace(lo - 3.0, hi + 3.0, 977), [lo, hi, 0.0]])
+    got = interp(torch.tensor(xs, dtype=torch.float64)).numpy()
+    want = np.asarray(j_interp(jnp.asarray(xs)))
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-9)
+    assert np.isfinite(got).all()  # -inf knots floored
+    inside = (xs > lo) & (xs < hi) & (xs > 0.05 if prior is _opaque_halfnorm else True)
+    exact = np.array([prior(x) for x in xs[inside]])
+    np.testing.assert_allclose(got[inside], exact, atol=4 * err + 1e-12)
+
+
+def test_log_prob_batch_matches_jax_for_interp_priors():
+    """``host_prior_mode="interp"``: an opaque prior becomes a table over
+    each theta entry's log-bounds +- 5 (JAX's range rule), with JAX's
+    warning; the chain's batched log posterior equals JAX's on the same
+    walkers, and a second model resolves the same cached table."""
+    X, y = _data()
+
+    def opaque(x):
+        return _opaque_norm(x + 0.3)
+
+    gp = _port(host_prior_mode="interp")
+    gp.fit(X, y, n_desired_samples=8, n_walkers_per_thread=8, n_burnin=0, warn_rhat=None)
+    jgp = jbg.BayesGPR(KERNEL, random_state=0, host_prior_mode="interp")
+    jgp.fit(X, y, n_desired_samples=8, n_walkers_per_thread=8, n_burnin=0,
+            progress=False, warn_rhat=None)
+    with pytest.warns(UserWarning, match="approximated by on-device interpolation"):
+        ours_priors = gp._resolve_priors([opaque] * 4)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        theirs_priors = jgp._resolve_priors([opaque] * 4)
+    assert all(isinstance(p, type(ours_priors[0])) and hasattr(p, "__tabulated__")
+               for p in ours_priors)
+    for p, jp in zip(ours_priors, theirs_priors):
+        assert p.__tabulated__ == jp.__tabulated__
+    lo, hi = np.log(0.1) - 5.0, np.log(2.0) + 5.0  # the ConstantKernel's bounds
+    assert ours_priors[0].__tabulated__[:2] == (lo, hi)
+    walkers = gp.theta[None] + 0.3 * np.random.RandomState(3).randn(6, 4)
+    ours = tbg._make_log_prob_batch(gp._spec, ours_priors, gp._data, 20)(torch.tensor(walkers))
+    theirs = jbg._make_log_prob_batch(jgp._spec, theirs_priors, None, 0, jgp._data)(
+        jnp.asarray(walkers))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=1e-9)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # cached: no new table, no warning
+        again = _port(host_prior_mode="interp")
+        again.fit(X, y, n_desired_samples=8, n_walkers_per_thread=8, n_burnin=0,
+                  warn_rhat=None)
+        assert again._resolve_priors([opaque] * 4)[0] is ours_priors[0]
+
+
 def test_scipy_prior_probe_fits_like_jax():
     """The probe: the port fits with frozen-SciPy priors, and its
     consensus theta is JAX's within 1e-4 (the two packages start from the
@@ -215,8 +289,8 @@ def test_host_prior_through_the_optimizer():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _port(host_prior_mode="interp")
+    # every mode is ported now: "interp" is taken, an unknown mode refused
+    assert _port(host_prior_mode="interp").host_prior_mode == "interp"
     with pytest.raises(ValueError, match="host_prior_mode"):
         _port(host_prior_mode="tabulate")
     # row mode is ported: its arguments are taken, a bad gradient refused

@@ -141,7 +141,7 @@ def test_pickles_of_earlier_models_still_load():
     gp.fit(X, y, n_desired_samples=32, n_walkers_per_thread=16, n_burnin=0, warn_rhat=None)
     old = dict(gp.__dict__)
     for name in ("optimizer", "n_restarts_optimizer", "copy_X_train", "chain_init",
-                 "ml2_subsample", "ml2_objective", "_prior_cache"):
+                 "ml2_subsample", "ml2_objective", "host_prior_mode"):
         del old[name]
     restored = BayesGPR.__new__(BayesGPR)
     restored.__setstate__(pickle.loads(pickle.dumps(old)))
