@@ -21,12 +21,18 @@ JAX package's randoms to the port. For nu in {1/2, 3/2, 5/2}, 2 nu is an
 integer and u is a sum of 2 nu squared normals.
 
 :func:`pathwise_topk_hyper` gives each draw its own chain row. Its
-per-row grams come from K1 (``ops.gram.fused_masked_gram_batch``) on a
-float32 CUDA tensor and from the plain gram elsewhere; they are factored
-by the blocked Cholesky with K3 bases. The JAX ``lax.scan`` over draws
-becomes chunks of draws, each holding at most :data:`CHUNK_BYTES` in one
-(chunk, m, max(n_pad, M)) tensor; each draw's values and top-k are those
-the per-draw loop gives.
+per-row grams come from K1 or K4 (``ops.gram.fused_masked_gram_batch``)
+on a float32 CUDA tensor and from the plain gram elsewhere; they are
+factored by the blocked Cholesky with K3 bases. A draw's values, the
+random features and the cross-kernel reduced against their weights, come
+from K5 (``ops.pathwise_values.pathwise_values``) on a float32 CUDA
+tensor, so no (draws, m, M) or (draws, m, n_pad) tensor is made; the
+plain version of the same function runs on the CPU and in float64. The
+JAX ``lax.scan`` over draws becomes chunks of draws, each holding at
+most :data:`CHUNK_BYTES` in its largest tensors (the draws, and with
+warping the warp's temporaries; :func:`draws_per_chunk`), which at the
+unwarped batch ask is one chunk of all draws; each draw's values and
+top-k are those the per-draw loop gives.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from ..ops import kernels as bk
 from ..ops.fast_cholesky import block_cholesky, block_solve_lower_mat, block_solve_upper_mat
 from ..ops.gram import FusedSpec, fused_masked_gram_batch
 from ..ops.linalg import masked_gram
+from ..ops.pathwise_values import pathwise_values, pathwise_values_plain
 
 __all__ = [
     "PathwiseRandoms",
@@ -49,12 +56,14 @@ __all__ = [
     "pathwise_topk",
     "pathwise_topk_hyper",
     "CHUNK_BYTES",
+    "draws_per_chunk",
 ]
 
-# the largest (chunk, m, max(n_pad, M)) slab of one chunk of draws: 1 GiB
-# holds 4 draws at m = 65,536 and n_pad = M = 1,024 in float32 (the
-# cross-kernel and the feature matrix each take one slab; their
-# elementwise temporaries a few more)
+# the largest per-draw tensors of one chunk of draws, summed over its
+# draws: the draws (m) and, with warping, the warp's continued-fraction
+# coefficients of the queries (warping._CF_TERMS = 48 of (m, d)). At
+# m = 65,536 and d = 15 in float32, 1 GiB holds 4,096 unwarped draws (the
+# 256-draw batch ask is one chunk) or 5 warped ones
 CHUNK_BYTES = 1 << 30
 
 
@@ -113,14 +122,6 @@ def _base_kernel(spec: FusedSpec):
     return bk.Matern(ls_init, (1e-5, 1e5), nu=spec.nu)
 
 
-def _cross_kernel(spec: FusedSpec, theta, Xq, X):
-    """Noise-free cross covariance k(Xq, X), (..., m, n), for the fused
-    family (White contributes nothing off the training diagonal)."""
-    off = 1 if spec.has_const else 0
-    K = _base_kernel(spec).eval(theta[..., off : off + spec.n_ls], Xq, X)
-    return torch.exp(theta[..., 0])[..., None, None] * K if spec.has_const else K
-
-
 def _fused_spec_gram(spec: FusedSpec, theta, X, data):
     """Masked gram (..., n_pad, n_pad) through the generic kernel tree of
     the fused family: the route for tensors K1 does not take."""
@@ -132,26 +133,36 @@ def _fused_spec_gram(spec: FusedSpec, theta, X, data):
     return masked_gram(kernel, theta, X, data.alpha_diag, data.mask)
 
 
-def _draw_values(spec: FusedSpec, theta, X, data, solve, Xq, rand: PathwiseRandoms):
+def _values_for(Xq):
+    """K5 for a float32 CUDA tensor, the plain version elsewhere (the CPU,
+    float64): the route ``_row_grams`` takes for K1."""
+    if Xq.is_cuda and Xq.dtype == torch.float32:
+        return pathwise_values
+    return pathwise_values_plain
+
+
+def _draw_values(spec: FusedSpec, theta, X, data, solve, Xq, rand: PathwiseRandoms,
+                 values=None):
     """Pathwise draws (..., m, S) at ``Xq`` (..., m, d) for thetas
     (..., n_theta), training inputs ``X`` (..., n_pad, d) and the
-    batched randoms; ``solve(R)`` applies K^-1 of the noisy masked gram
-    to (..., n_pad, S)."""
+    batched randoms, ``...`` one batch dim or none; ``solve(R)`` applies
+    K^-1 of the noisy masked gram to (..., n_pad, S). ``values`` computes
+    f0 and the draws (K5's function): by default :func:`_values_for`'s
+    choice."""
+    if theta.ndim == 1:  # one row: a batch of one
+        part = PathwiseRandoms(*(None if r is None else r[None] for r in rand))
+        return _draw_values(spec, theta[None], X, data, solve, Xq, part, values)[0]
+    values = values or _values_for(Xq)
     n_features = rand.z.shape[-2]
     amp, noise, inv_ls = _unpack(spec, theta, X.shape[-1])
-    omega_t = sample_frequencies(spec, inv_ls, rand.z, rand.u).transpose(-1, -2)
-    coef = torch.sqrt(2.0 * amp / n_features)[..., None, None]
-
-    def features(A):  # (..., n, d) -> (..., n, M)
-        return coef * torch.cos(A @ omega_t + rand.phase[..., None, :])
-
-    f0_train = features(X) @ rand.w  # (..., n_pad, S)
+    omega = sample_frequencies(spec, inv_ls, rand.z, rand.u)
+    coef = torch.sqrt(2.0 * amp / n_features)
+    f0_train = values(spec.nu, X, omega, rand.phase, rand.w, coef)  # (B, n_pad, S)
     eps = torch.sqrt(noise[..., None] + data.alpha_diag)[..., None] * rand.e
     mask = data.mask[:, None]
     resid = torch.where(mask, data.y[:, None] - f0_train - eps, 0.0)
-    v = solve(resid)
-    Kq = _cross_kernel(spec, theta, Xq, X) * data.mask
-    return features(Xq) @ rand.w + Kq @ v
+    V = solve(resid) * mask
+    return values(spec.nu, Xq, omega, rand.phase, rand.w, coef, X, inv_ls, V, amp)
 
 
 def pathwise_samples(spec: FusedSpec, theta, data, L, Xq, rand: PathwiseRandoms):
@@ -198,9 +209,10 @@ def pathwise_topk_hyper(
 
     Each of the S draws uses its own chain row (kernel theta, then the
     2 ``n_warp`` warp parameters when warping): one batched gram and one
-    blocked factorization for all rows, then chunks of draws that build
-    their cross-kernels and reduce straight to top-k indices, so the
-    (m, S) draw matrix never exists. ``rows`` is (S, n_theta + 2 n_warp),
+    blocked factorization for all rows, then chunks of draws
+    (:func:`draws_per_chunk`; one at the unwarped batch ask) whose values come
+    from two K5 launches each (f0 at the training points, then the
+    draws) and reduce to top-k indices. ``rows`` is (S, n_theta + 2 n_warp),
     ``rand`` batched over S with one draw each (w (S, M, 1), e
     (S, n_pad, 1)). Returns the (S, k) indices, and with ``keep`` (draw
     indices) also those draws' values (len(keep), m), in normalized
@@ -220,9 +232,7 @@ def pathwise_topk_hyper(
         Xb = data.X
     L, invs = block_cholesky(_row_grams(spec, thetas, Xb, data, n_real))
 
-    n_pad, n_features = data.X.shape[0], rand.z.shape[-2]
-    slab = m * max(n_pad, n_features) * data.X.element_size()
-    chunk = max(1, min(S, CHUNK_BYTES // slab))
+    chunk = draws_per_chunk(S, m, Xq.shape[-1], n_warp, Xq.element_size())
     keep = [] if keep is None else [int(i) for i in keep]
     idx, kept = [], {}
     for lo in range(0, S, chunk):
@@ -244,3 +254,14 @@ def pathwise_topk_hyper(
     if keep:
         return idx, torch.stack([kept[i] for i in keep])
     return idx
+
+
+def draws_per_chunk(S: int, m: int, d: int, n_warp: int, itemsize: int) -> int:
+    """Draws per chunk of :func:`pathwise_topk_hyper`: as many as keep its
+    largest per-draw tensors, the draws (m) and with warping the warp's
+    (``_CF_TERMS``, m, d) coefficients, within :data:`CHUNK_BYTES`; at
+    least 1, at most S. Each chunk launches K5 twice on the card."""
+    from .warping import _CF_TERMS
+
+    per_draw = m * (1 + (_CF_TERMS * d if n_warp else 0)) * itemsize
+    return max(1, min(S, CHUNK_BYTES // per_draw))

@@ -10,8 +10,9 @@ name carries a hash of the sources, the target, the ``nvcc`` version,
 torch's version and CUDA version and the card's compute capability
 (:func:`library_name`), so an edited source or another toolchain or card
 builds anew, and a build for the same ones is reused. No ``--use_fast_math``: a
-kernel takes an approximate operation only where it says so (K1's root,
-K3's pivot rsqrt); ``expf`` stays exact, as the tests' bounds assume.
+kernel takes an approximate operation only where it says so (the Matern
+root of K1, K2, K4 and K5, K3's pivot rsqrt); ``expf`` and ``cosf`` stay
+exact, as the tests' bounds assume.
 
 Each C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; :func:`check` raises when
@@ -58,6 +59,10 @@ _SIGNATURES = {
     "bask_gram_blocks_per_sm": [_I, _I, _I, _P],
     # A, batch_stride, row_stride, L, Linv, batch, m, stream
     "bask_chol_inv_f32": [_P, _LL, _LL, _P, _P, _I, _I, _P],
+    # xq, xq_stride, omega, phase, w, coef, x (or null), x_stride, inv_ls,
+    # v, amp, out, B, m, n_feat, n_pts, d, r, nu_code, stream
+    "bask_pathwise_values_f32": [_P, _LL, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 # filled by library(): seconds to build or load, whether nvcc built it, the

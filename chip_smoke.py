@@ -47,8 +47,14 @@ Phases, each printing one result line:
    bases); the grams at (256, 1024, 1024) and (128, 1024, 1024) through
    the route (K4) and from K1 itself, each alone and against its float64
    plain version on a few rows,
-   the (256, 1024, 1024) factorization A/B against ``cholesky_ex``, and
-   4 of 256 pathwise draws held to a float64 recomputation;
+   the (256, 1024, 1024) factorization A/B against ``cholesky_ex``,
+   4 of 256 pathwise draws held to a float64 recomputation (and a TF32
+   control through K5's plain version that must miss), K5 (the draws'
+   values, ``csrc/pathwise.cu``) launched twice in each ask (one chunk of
+   256 draws), against its float64 plain version on the 4 draws' inputs
+   at the full shape, timed alone (profiler and CUDA events) beside its
+   plain version and its bound, and a profiled ask under 700 device
+   operations;
 9. on phase 6's fitted Optimizer (n = 500, d = 15): a warm tell with the
    PVRS polish and one with the EI polish (each polished value no lower
    than its start under the same draws), the chain's diagnostics, the
@@ -157,6 +163,13 @@ BATCH_OBS, BATCH_PAD, BATCH_WALKERS, BATCH_CAND, BATCH_K = 1000, 1024, 256, 6553
 # below the worst-case eps32 (3n + cond K)
 CHECK_DRAWS = (0, 85, 170, 255)
 DRAW_REL_TOL = 3e-4
+# K5 alone against its plain version in float64 on the same float32
+# inputs: a third of the draws' limit (the rest is the gram's, the
+# factorization's and the solves'), of the largest |value|
+K5_REL_TOL = DRAW_REL_TOL / 3
+# the most device operations a profiled 256-point ask may run (6,679-6,683
+# when the draws ran op by op in 64 chunks)
+ASK_MAX_DEVICE_OPS = 700
 # published peaks of one H100 SXM (NVIDIA's datasheet): HBM bytes/s
 # and float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -686,13 +699,14 @@ def phase_lml(dev):
 
 
 def _kernel_counters():
-    from bask_tpu_torch.ops import chol_base, gram
+    from bask_tpu_torch.ops import chol_base, gram, pathwise_values
 
     return {
         "K1": gram.fused_masked_gram_batch,
         "K2": gram.fused_masked_gram_lower_batch,
         "K3": chol_base.chol_inv_base,
         "K4": gram.fused_masked_gram_wb_batch,
+        "K5": pathwise_values.pathwise_values,
     }
 
 
@@ -1033,14 +1047,17 @@ def _draws_f64(gp, spec, rows, rand, Xq):
 def _draws_tf32(gp, spec, rows, rand, Xq):
     """The control the draws' limit must reject: the draws of ``rows``
     (one each) with the gram and the factor in float32 as the path makes
-    them, then the features, the blocked solves and k(x, X) v as TF32
-    matmuls (10-bit mantissas). With the factorization in TF32 as well,
-    the factor of these grams (cond K ~1e5) is NaN."""
+    them, then the features' dot, the blocked solves and the reductions
+    against w and v as TF32 matmuls (10-bit mantissas), through K5's plain
+    version: what a faster, coarser dot would give. With the
+    factorization in TF32 as well, the factor of these grams (cond K ~1e5)
+    is NaN."""
     import torch
 
     from bask_tpu_torch.models import pathwise
     from bask_tpu_torch.ops import fast_cholesky as fc
     from bask_tpu_torch.ops import gram
+    from bask_tpu_torch.ops import pathwise_values as pv
 
     d = gp._data
     L, invs = fc.block_cholesky(
@@ -1053,18 +1070,99 @@ def _draws_tf32(gp, spec, rows, rand, Xq):
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.set_float32_matmul_precision("high")
     try:
-        return pathwise._draw_values(spec, rows, d.X, d, solve, Xq, rand)[..., 0].double()
+        return pathwise._draw_values(spec, rows, d.X, d, solve, Xq, rand,
+                                     values=pv.pathwise_values_plain)[..., 0].double()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
+
+
+def _k5_args(gp, spec, rows, rand, Xq):
+    """The arguments of the draws' K5 launch (the queries' call) for
+    ``rows``, one draw each, as the path forms them: the rows' gram and
+    blocked factor in float32, f0 at the training points from K5's plain
+    version; the launch itself is not made."""
+    import torch
+
+    from bask_tpu_torch.models import pathwise
+    from bask_tpu_torch.ops import fast_cholesky as fc
+    from bask_tpu_torch.ops import gram
+    from bask_tpu_torch.ops import pathwise_values as pv
+
+    d = gp._data
+    L, invs = _uncounted(lambda: fc.block_cholesky(
+        gram.fused_masked_gram_batch(spec, rows, d.X, d.alpha_diag, BATCH_OBS)))
+
+    def solve(R):
+        return fc.block_solve_upper_mat(L, invs, fc.block_solve_lower_mat(L, invs, R))
+
+    calls = []
+
+    def values(nu, Xq, omega, phase, W, coef, *cross):
+        calls.append((nu, Xq, omega, phase, W, coef, *cross))
+        if not cross:  # f0 at the training points
+            return pv.pathwise_values_plain(nu, Xq, omega, phase, W, coef)
+        return torch.zeros(omega.shape[0], Xq.shape[-2], W.shape[-1], device=Xq.device)
+
+    pathwise._draw_values(spec, rows, d.X, d, solve, Xq, rand, values=values)
+    return calls[1]
+
+
+def _k5_phase8(gp, spec, rows, rand, Xq, keep):
+    """K5 at the batch ask's query launch: against its plain version in
+    float64 on the inputs of the draws ``keep`` (K5_REL_TOL of the largest
+    |value|), then all rows' launch timed alone (profiler, and CUDA
+    events over the wrapper), its plain version over the same rows in
+    chunks of 4 draws (the op-by-op path's chunks), and the bound from
+    this launch's inputs by ``pathwise_values.k5_operations``."""
+    import torch
+
+    from bask_tpu_torch.ops import pathwise_values as pv
+
+    sub = type(rand)(*(None if r is None else r[keep] for r in rand))
+    args = _k5_args(gp, spec, rows[keep], sub, Xq)
+    out = _uncounted(lambda: pv.pathwise_values(*args))
+    ref = pv.pathwise_values_plain(*(a.double() if torch.is_tensor(a) else a for a in args))
+    err = float((out.double() - ref).abs().max())
+    scale = float(ref.abs().max())
+    finite = bool(torch.isfinite(out).all())
+    del out, ref
+    args = _k5_args(gp, spec, rows, rand, Xq)
+    nu, Xq_, omega, phase, W, coef, X, inv_ls, V, amp = args
+    B, M, d = omega.shape
+    m, R, n_pad = Xq_.shape[-2], W.shape[-1], X.shape[-2]
+
+    def launch():
+        return pv.pathwise_values(*args)
+
+    def plain_in_chunks():
+        for lo in range(0, B, 4):
+            sl = slice(lo, lo + 4)
+            pv.pathwise_values_plain(nu, Xq_, omega[sl], phase[sl], W[sl], coef[sl], X,
+                                     inv_ls[sl], V[sl], amp[sl])
+
+    ms, alone, plain_ms = _uncounted(lambda: (
+        cuda_ms(launch, reps=5), alone_us(launch, "pathwise_values_kernel", reps=3),
+        cuda_ms(plain_in_chunks, reps=2)))
+    n_bytes = sum(a.numel() * a.element_size() for a in args[1:]) + 4 * B * m * R
+    ops = pv.k5_operations(B, m, M, BATCH_OBS, d, R)
+    bound, by = bound_ms(n_bytes, ops)
+    return {"shape": {"rows": B, "queries": m, "features": M, "n_pad": n_pad,
+                      "n_real": BATCH_OBS, "d": d, "R": R},
+            "checked_draws": list(keep), "max_abs_err": err, "scale": scale,
+            "tol": K5_REL_TOL * scale, "finite": finite, "ms": ms,
+            "alone_ms": None if alone is None else alone / 1e3, "plain_ms": plain_ms,
+            "operations": ops, "bytes": n_bytes, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "ok": finite and err <= K5_REL_TOL * scale}
 
 
 def phase_batch_ask(dev):
     """BASELINE configs[4] through the Optimizer: a cold batch tell of
     1,000 points (256 walkers, EI over 65,536 candidates), then two
     256-point batch asks; the routed grams (K4) and K1 itself at the
-    path's shapes, the factorization A/B and 4 draws against float64.
-    Returns (launches, K1, K4 and K3 extras)."""
+    path's shapes, the factorization A/B, 4 draws against float64, and K5
+    (the draws' values) against its plain version and timed alone.
+    Returns (launches, K1, K4, K3 and K5 extras)."""
     import torch
 
     from bask_tpu_torch import Optimizer
@@ -1102,7 +1200,7 @@ def phase_batch_ask(dev):
     # third as its warm-up (neither in the counts or the timings above):
     # busy share = the ask's summed kernel time over the host wall time of
     # that ask alone, top kernels
-    _, ops, wall_s = profiled(lambda: opt.ask(n_points=BATCH_K), reps=1, wall=True)
+    ops, wall_s = _profiled_retry(lambda: opt.ask(n_points=BATCH_K))
     by_name = {}
     for e in ops:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
@@ -1110,6 +1208,16 @@ def phase_batch_ask(dev):
     ask_profile = {"device_ops": len(ops), "device_us": sum(by_name.values()),
                    "wall_us": 1e6 * wall_s, "busy_share": sum(by_name.values()) / (1e6 * wall_s),
                    "top_kernels_us": [[k[:60], v] for k, v in top]}
+    # the ask's two parts on their own (host clock, uncounted): the fresh
+    # candidate grid (host) and the pathwise top-k on it (to the synchronize)
+    t0 = time.perf_counter()
+    cand = opt._candidate_grid()
+    ask_profile["candidate_grid_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _uncounted(lambda: opt.gp.thompson_argmin_pathwise(
+        cand, n_samples=BATCH_K, top_k=2 * BATCH_K, random_state=1, sample_mean=False))
+    torch.cuda.synchronize()
+    ask_profile["thompson_argmin_pathwise_s"] = time.perf_counter() - t0
     distinct = [len({tuple(p) for p in pts}) for pts in points]
     inside = all(bool(((pts >= 0.0) & (pts <= 1.0)).all()) for pts in points)
 
@@ -1140,6 +1248,8 @@ def phase_batch_ask(dev):
     draws_ok = bool((err <= tol).all() and (gap <= tol).all())
     err_tf32 = (_draws_tf32(gp, spec, rows[keep], sub, grid) - draws64).abs().max(dim=1).values
     control_fails = bool((~(err_tf32 <= tol)).all())  # NaN misses too
+    k5 = _k5_phase8(gp, spec, rows, rand, grid, keep)
+    k5_per_ask = 2 * -(-BATCH_K // pathwise.draws_per_chunk(BATCH_K, BATCH_CAND, N_DIM, 0, 4))
 
     # K1 alone at the path's shapes and the factorization A/B at 256
     theta_rows = gp.chain_[np.random.RandomState(10).choice(len(gp.chain_), BATCH_WALKERS)]
@@ -1166,7 +1276,7 @@ def phase_batch_ask(dev):
         last_timings=opt.last_timings_, distinct_points=distinct, inside_bounds=inside,
         launches=per_step, peak_mem_gb=peak_gb, chunk_bytes=pathwise.CHUNK_BYTES,
         ask_profile=ask_profile,
-        k4=k4, k1=k1, factorization_ab=factor,
+        k4=k4, k1=k1, factorization_ab=factor, k5=k5, k5_launches_per_ask_predicted=k5_per_ask,
         draws_f64={"draws": keep, "max_abs_err": err.tolist(), "scale": scale.tolist(),
                    "rel_err": (err / scale).tolist(), "tol": tol.tolist(),
                    "upper_bound_cond_K": upper.tolist(), "cond_K": conds,
@@ -1188,6 +1298,13 @@ def phase_batch_ask(dev):
         "K3 launch timed under the profiler": factor["k3_launch"]["alone_us"] is not None,
         "4 draws agree with float64": draws_ok,
         "the TF32 control misses the draws' limit": control_fails,
+        # the draws' values: K5, twice per chunk of draws (one chunk here)
+        "K5 ran in each ask, as the chunk rule predicts": all(
+            per_step[f"ask {i}"]["K5"] == k5_per_ask >= 1 for i in (1, 2)),
+        "K5 agrees with its plain version": k5["ok"],
+        "K5 timed under the profiler": k5["alone_ms"] is not None,
+        f"a profiled ask runs 1-{ASK_MAX_DEVICE_OPS - 1} device operations":
+            0 < ask_profile["device_ops"] < ASK_MAX_DEVICE_OPS,
     }
     failed = [k for k, v in checks.items() if not v]
     if failed:
@@ -1195,7 +1312,10 @@ def phase_batch_ask(dev):
     k3_ab = {"shape": factor["shape"], "blocked_ms": float(np.median(factor["ms_turns"]["blocked"])),
              "library_ms": float(np.median(factor["ms_turns"]["cholesky_ex"])),
              "launches_per_factorization": factor["k3_launches"], "per_launch": factor["k3_launch"]}
-    return launches, k1, k4, k3_ab
+    k5_row = {key: k5[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")}
+    k5_row["at_batch_ask"] = k5
+    return launches, k1, k4, k3_ab, k5_row
 
 
 def phase_stopping_polish(opt, dev):
@@ -2581,7 +2701,8 @@ def main() -> int:
     opt = timed("6", phase_optimizer, dev)
     by_path = {}
     by_path["phase 7 warped tell"], warped_opt = timed("7", phase_warped_optimizer, dev)
-    by_path["phase 8 batch ask"], k1_batch, k4_batch, k3_batch = timed("8", phase_batch_ask, dev)
+    by_path["phase 8 batch ask"], k1_batch, k4_batch, k3_batch, k5 = timed(
+        "8", phase_batch_ask, dev)
     by_path["phase 9 polish"] = timed("9", phase_stopping_polish, opt, dev)
     by_path["phase 10 fit options"] = timed("10", phase_fit_options, opt, dev)
     by_path["phase 11 bench_gram_wb"] = k4_path
@@ -2611,6 +2732,12 @@ def main() -> int:
          "source": "bask_tpu_torch/csrc/gram_wb.cu",
          "replaces": "benchmarks/bench_gram_wb.py:59",
          **launches("K4"), **k4, "at_batch_ask_shapes": k4_batch},
+        # no TPU kernel: XLA fused these draws inside the JAX package's
+        # jitted pathwise program
+        {"name": "K5 pathwise draw values", "route": "cuda",
+         "source": "bask_tpu_torch/csrc/pathwise.cu",
+         "replaces": "none (XLA's fusion in bask_tpu/models/pathwise.py:54-112 and :130-215)",
+         **launches("K5"), **k5},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

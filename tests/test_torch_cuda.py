@@ -25,7 +25,11 @@ blocks by cholesky_ex) against the dense float64 model; K1, K2 and K4
 with ``n_real`` as a device scalar bit-equal to the int, the chain
 replayed from CUDA graphs bit-equal to the eager chain (K4, K2 on warped
 X, K1, and bucket 64's cholesky_ex) with the same launch counts, and no
-graph captured after ``warmup_optimizer``.
+graph captured after ``warmup_optimizer``; K5 (the pathwise draws'
+values) against its float64 plain version for every nu, R 1, 3, 8 and
+11, n_pad 512 and 1,024, d 15 and 40, shared and per-row queries, a NaN
+row, its refusals, and the batch ask's draws launching it twice without
+a (m, n_pad) slab.
 
 Every test here needs a CUDA card and skips without one. The file
 imports no JAX, so it also runs where only the port is installed:
@@ -551,8 +555,8 @@ def test_blocked_factorization_at_the_batch_ask_shape(dev):
 
 
 def test_pathwise_topk_against_float64(dev):
-    """One pathwise top-k on the card (K1 gram, K3 bases, chunks of
-    draws) against the same draws recomputed in float64 with the plain
+    """One pathwise top-k on the card (K1 gram, K3 bases, K5 values)
+    against the same draws recomputed in float64 with the plain
     gram and cholesky_ex: within eps32 (3n + cond(K)) of each draw's
     scale (as above), and each top-1 index within that of the float64
     minimum."""
@@ -950,3 +954,146 @@ def test_no_capture_after_warmup(dev):
                  gp_samples=20, gp_burnin=2)
     assert opt.gp.chain_ is not None
     assert mcmc.graph_stats["captures"] == captures
+
+
+# K5 (the pathwise draws' values, csrc/pathwise.cu). A draw's float32 error
+# budget is chip_smoke.py's DRAW_REL_TOL: 3e-4 of its scale against float64,
+# for the gram, the factorization, the solves and K5 together. K5 alone
+# gets a third of it: against its plain version run in float64 on the same
+# float32 inputs (so K5's rounding is the only difference), within
+# K5_REL_TOL of the largest |value|.
+DRAW_REL_TOL = 3e-4
+K5_REL_TOL = DRAW_REL_TOL / 3
+
+
+def _k5_inputs(dev, nu, B=4, m=1000, n_pad=512, d=15, R=1, per_row=False, n=500, M=1024,
+               seed=0):
+    """Seeded inputs of one K5 call: (Xq, omega, phase, W, coef, X, inv_ls,
+    V, amp) float32 on the card, as ``models.pathwise._draw_values`` forms
+    them (omega from the spectral measure of nu; V zero on padded rows)."""
+    rng = np.random.RandomState(seed)
+    inv_ls = 1.0 / rng.uniform(0.2, 0.6, (B, d))
+    scale = 1.0 if math.isinf(nu) else np.sqrt(2 * nu / (2.0 * rng.gamma(nu, size=(B, M, 1))))
+    omega = rng.randn(B, M, d) * scale * inv_ls[:, None, :]
+    amp = rng.uniform(0.5, 2.0, B)
+    X = np.full((B, n_pad, d) if per_row else (n_pad, d), 0.5)
+    X[..., :n, :] = rng.uniform(size=X[..., :n, :].shape)
+    V = rng.randn(B, n_pad, R)
+    V[:, n:] = 0.0
+    arrays = (rng.uniform(size=(B, m, d) if per_row else (m, d)), omega,
+              rng.uniform(0, 2 * math.pi, (B, M)), rng.randn(B, M, R), np.sqrt(2 * amp / M),
+              X, inv_ls, V, amp)
+    return [torch.tensor(a, dtype=torch.float32, device=dev) for a in arrays]
+
+
+def _check_k5(nu, args):
+    from bask_tpu_torch.ops import pathwise_values as pv
+
+    before = pv.pathwise_values.launches
+    out = pv.pathwise_values(nu, *args)
+    torch.cuda.synchronize()
+    R = args[3].shape[-1]
+    assert pv.pathwise_values.launches == before + -(-R // 8)
+    ref = pv.pathwise_values_plain(nu, *(a.double() for a in args))
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    err = float((out.double() - ref).abs().max())
+    assert err <= K5_REL_TOL * float(ref.abs().max()), (err, float(ref.abs().max()))
+    return out
+
+
+@pytest.mark.parametrize("nu", [0.5, 1.5, 2.5, math.inf])
+@pytest.mark.parametrize("R", [1, 3, 8])
+def test_pathwise_values_kernel_matches_plain(dev, nu, R):
+    """Every nu and R at m = 1,000 (not a multiple of the 128-query tile),
+    shared queries, n_pad 512, d 15; and the f0 form (no cross term)."""
+    args = _k5_inputs(dev, nu, R=R)
+    _check_k5(nu, args)
+    _check_k5(nu, args[:5])
+
+
+@pytest.mark.parametrize("n_pad,d,per_row", [(512, 15, True), (1024, 15, False),
+                                             (1024, 15, True), (512, 40, False),
+                                             (1024, 40, True)])
+def test_pathwise_values_kernel_at_each_width(dev, n_pad, d, per_row):
+    """n_pad 512 and 1,024, d 15 (the query in registers) and 40 (in
+    shared memory), shared and per-row queries and training points."""
+    args = _k5_inputs(dev, 2.5, n_pad=n_pad, d=d, per_row=per_row, m=777, R=3, seed=1)
+    _check_k5(2.5, args)
+    _check_k5(0.5, args)
+
+
+def test_pathwise_values_kernel_groups_columns_past_8(dev):
+    """R = 11: two launches (8 + 3 columns), the plain version's values."""
+    _check_k5(1.5, _k5_inputs(dev, 1.5, R=11, seed=2))
+
+
+def test_pathwise_values_kernel_nan_row_and_determinism(dev):
+    """A NaN row (what a NaN chain row gives: NaN amp, 1/ls and
+    frequencies; or a non-PD factor: NaN V) gives NaN values in that row
+    only and does not raise; two launches are bit-equal."""
+    from bask_tpu_torch.ops import pathwise_values as pv
+
+    args = _k5_inputs(dev, 2.5, seed=3)
+    first = pv.pathwise_values(2.5, *args)
+    assert torch.equal(first, pv.pathwise_values(2.5, *args))
+    for idx in ((1, 4, 6, 8), (7,)):
+        bad = [a.clone() for a in args]
+        for i in idx:
+            bad[i][1] = float("nan")
+        out = pv.pathwise_values(2.5, *bad)
+        torch.cuda.synchronize()
+        assert torch.isnan(out[1]).all()
+        assert torch.equal(out[[0, 2, 3]], first[[0, 2, 3]])
+
+
+def test_pathwise_values_kernel_refuses(dev):
+    from bask_tpu_torch.ops import pathwise_values as pv
+
+    args = _k5_inputs(dev, 2.5)
+    with pytest.raises(TypeError):
+        pv.pathwise_values(2.5, *(a.double() for a in args))
+    with pytest.raises(ValueError):
+        pv.pathwise_values(1.7, *args)
+    with pytest.raises(ValueError):  # V without its training points' count
+        pv.pathwise_values(2.5, *args[:7], args[7][:, :100], args[8])
+    with pytest.raises(ValueError):
+        pv.pathwise_values(2.5, args[0], *args[1:5], args[5], args[6], args[7], None)
+    wide = _k5_inputs(dev, 2.5, d=257, m=10, n_pad=16, n=8, M=8, B=1)
+    with pytest.raises(ValueError):
+        pv.pathwise_values(2.5, *wide)
+
+
+def test_pathwise_topk_hyper_launches_k5_without_slabs(dev):
+    """The batch ask's draws at m = 65,536: two K5 launches (one chunk of
+    4 draws), and the call's peak memory above what it starts with (the
+    gram and its factorization ~85 MB) stays below one draw's (m, n_pad)
+    float32 slab (268 MB), where the op-by-op draws held (4, m, 1,024)
+    slabs."""
+    from bask_tpu_torch.models import gp as gpc
+    from bask_tpu_torch.models import pathwise
+    from bask_tpu_torch.ops import pathwise_values as pv
+
+    rng = np.random.RandomState(9)
+    n, n_pad, d, S, m = 1000, 1024, 15, 4, 65536
+    X = np.full((n_pad, d), 0.5)
+    X[:n] = rng.uniform(size=(n, d))
+    y = np.zeros(n_pad)
+    y[:n] = rng.randn(n)
+    rows = KERNEL.theta0[None] + 0.1 * rng.randn(S, KERNEL.n_theta)
+    rows[:, -1] = np.log(1e-2)
+    t = [torch.tensor(a, dtype=torch.float32, device=dev) for a in (X, y, np.full(n_pad, 1e-6))]
+    data = gpc.make_data(*t, np.arange(n_pad) < n)
+    spec = gram.match_fusable(KERNEL)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rand = pathwise.draw_pathwise_randoms(gen, spec.nu, 1024, d, n_pad, 1, batch=(S,), device=dev)
+    Xq = torch.tensor(rng.uniform(size=(m, d)), dtype=torch.float32, device=dev)
+    rows = torch.tensor(rows, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = pv.pathwise_values.launches
+    idx = pathwise.pathwise_topk_hyper(spec, rows, data, Xq, rand, 0, 8, n_real=n)
+    torch.cuda.synchronize()
+    assert pv.pathwise_values.launches == before + 2
+    assert torch.cuda.max_memory_allocated(dev) - base < 4 * m * n_pad
+    assert idx.shape == (S, 8) and bool((idx >= 0).all() and (idx < m).all())
