@@ -1,8 +1,10 @@
-// What K1/K2 (gram.cu) and K4 (gram_wb.cu) share: the spec's flags and
-// the Matern epilogue, so that both form an entry from d2 the same way.
+// What K1/K2 (gram.cu), K4 (gram_wb.cu) and K5 (pathwise.cu) share: the
+// spec's flags, the Matern epilogue (so that every kernel forms an entry
+// from d2 the same way) and the 3xTF32 tensor-core helpers of K4 and K5.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -41,6 +43,25 @@ __device__ __forceinline__ int load_n_real(const int* n_real_p, int n_pad, bool&
 }
 
 __device__ __forceinline__ float nan_f32() { return __int_as_float(0x7fc00000); }
+
+// x = hi + lo: hi is x rounded to TF32 (10 mantissa bits) to nearest,
+// ties away from zero, as cvt.rna.tf32.f32 rounds, but by two integer
+// operations on the bits (measured faster on the H100 than two cvt.rna);
+// lo = x - hi exactly, of which the tensor cores read the top 10 mantissa
+// bits (the low 13 are dropped), so hi + lo carries x to ~2^-21. A NaN x
+// keeps a NaN lo.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
 struct Spec {
   int has_const;  // thetas[0] is log amp

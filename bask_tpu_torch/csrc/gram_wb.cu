@@ -129,25 +129,6 @@ __device__ __forceinline__ int staged(int r, int c) {
   return (c >> 5) * (kTile * kBox) + r * kBox + ((((c & 31) >> 2) ^ (r & 7)) << 2) + (c & 3);
 }
 
-// x = hi + lo: hi is x rounded to TF32 (10 mantissa bits) to nearest,
-// ties away from zero, as cvt.rna.tf32.f32 rounds, but by two integer
-// operations on the bits (measured faster on the H100 than two cvt.rna);
-// lo = x - hi exactly, of which the tensor cores read the top 10 mantissa
-// bits (the low 13 are dropped), so hi + lo carries x to ~2^-21. A NaN x
-// keeps a NaN lo.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }

@@ -659,6 +659,10 @@ class BayesGPR:
             return self._spec
         return self._spec.with_theta(np.asarray(t, dtype=float))
 
+    @kernel_.setter
+    def kernel_(self, value):
+        self._spec = value
+
     @property
     def X_train_(self):
         """Training inputs (warped if ``warp_inputs``), unpadded."""
@@ -1153,6 +1157,7 @@ class BayesGPR:
         X=None,
         y=None,
         noise_vector=None,
+        n_threads: int = 1,
         n_desired_samples: int = 100,
         n_burnin: int = 0,
         n_thin: int = 1,
@@ -1179,7 +1184,9 @@ class BayesGPR:
         (``None``: the constructor's) ``"laplace"`` from the Laplace
         approximation at the posterior mode (the ball where its curvature
         is unusable); runs
-        ``ceil(n_desired_samples / n_walkers) + n_burnin`` steps and sets
+        ``ceil(n_desired_samples / n_walkers) + n_burnin`` steps of
+        ``n_walkers = max(2, n_threads * n_walkers_per_thread)`` walkers
+        (rounded up to even, as in the JAX package) and sets
         the consensus model at the geometric median of the kept chain.
         ``until_rhat`` then warm-extends the chain in legs of
         ``extension_steps`` steps until the max split R-hat of its second
@@ -1199,7 +1206,7 @@ class BayesGPR:
         if isinstance(warn_rhat, str):  # "default"
             warn_rhat = None if until_rhat is not None else DEFAULT_WARN_RHAT
         common = dict(
-            n_thin=n_thin,
+            n_thin=n_thin, n_threads=n_threads,
             n_walkers_per_thread=n_walkers_per_thread, progress=progress, priors=priors,
             warp_priors=warp_priors, moves=moves, warn_rhat=None, mesh=mesh, **kwargs,
         )
@@ -1272,7 +1279,8 @@ class BayesGPR:
         warp_prior = self._resolve_warp_priors(warp_priors)
         n_warp = self._n_warp()
         n_dim = self._spec.n_theta + 2 * n_warp
-        n_walkers = max(2, n_walkers_per_thread + n_walkers_per_thread % 2)
+        n_walkers = max(2, n_threads * n_walkers_per_thread)
+        n_walkers += n_walkers % 2
         row_cfg = self._row_cfg()
         if row_cfg is not None and mesh is not None:
             raise ValueError(
@@ -1390,6 +1398,7 @@ class BayesGPR:
         X,
         y,
         noise_vector=None,
+        n_threads: int = 1,
         n_desired_samples: int = 100,
         n_burnin: int = 10,
         n_walkers_per_thread: int = 100,
@@ -1414,6 +1423,7 @@ class BayesGPR:
         if widx is not None:
             self.noise_ = float(np.exp(theta_ml[widx]))
         return self.sample(
+            n_threads=n_threads,
             n_desired_samples=n_desired_samples,
             n_burnin=n_burnin,
             n_walkers_per_thread=n_walkers_per_thread,

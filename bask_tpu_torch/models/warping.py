@@ -40,8 +40,7 @@ __all__ = [
 ]
 
 _CF_TERMS = 48
-_WAYS = 64
-_ROUNDS = 10
+_WAYS = 64  # a round of the unwarp's search resolves 6 bits
 
 
 def _betaln(a, b):
@@ -99,17 +98,19 @@ def warp_grad(X, log_alphas, log_betas):
     return torch.exp((a - 1.0) * torch.log(x) + (b - 1.0) * torch.log1p(-x) - _betaln(a, b))
 
 
-def unwarp(Z, log_alphas, log_betas):
-    """Columnwise Beta PPF: the x with betainc(a, b, x) = z, to a 2^-60
-    bracket (64-way search, 10 rounds), returned as the bracket's
-    midpoint."""
+def unwarp(Z, log_alphas, log_betas, n_iter: int = 60):
+    """Columnwise Beta PPF: the x with betainc(a, b, x) = z, returned as
+    the midpoint of its bracket. ``n_iter`` is the JAX package's count of
+    bisection steps: a 64-way search runs ``ceil(n_iter / 6)`` rounds of
+    6 bits each (10 by default, a 2^-60 bracket), so the bracket is at
+    most as wide as ``n_iter`` bisections leave it."""
     a, b = _ab(log_alphas, log_betas)
     Z = torch.clamp(Z, 0.0, 1.0)
     steps = torch.arange(1, _WAYS, dtype=Z.dtype, device=Z.device) / _WAYS
     steps = steps.view((-1,) + (1,) * Z.ndim)
     lo = torch.zeros_like(Z)
     width = 1.0
-    for _ in range(_ROUNDS):
+    for _ in range(-(-int(n_iter) // 6)):
         below = (betainc(a, b, lo + width * steps) < Z).sum(0)
         lo = lo + below.to(Z.dtype) * (width / _WAYS)
         width /= _WAYS

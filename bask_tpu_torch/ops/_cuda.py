@@ -11,8 +11,9 @@ torch's version and CUDA version and the card's compute capability
 (:func:`library_name`), so an edited source or another toolchain or card
 builds anew, and a build for the same ones is reused. No ``--use_fast_math``: a
 kernel takes an approximate operation only where it says so (the Matern
-root of K1, K2, K4 and K5, K3's pivot rsqrt); ``expf`` and ``cosf`` stay
-exact, as the tests' bounds assume.
+root of K1, K2, K4 and K5, K3's pivot rsqrt, the cosine of K5's
+tensor-core kernel on an exactly reduced argument); ``expf`` stays exact,
+as the tests' bounds assume.
 
 Each C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; :func:`check` raises when
@@ -63,6 +64,8 @@ _SIGNATURES = {
     # v, amp, out, B, m, n_feat, n_pts, d, r, nu_code, stream
     "bask_pathwise_values_f32": [_P, _LL, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _P],
+    # d, r, nu_code, info[4]: K5's launch plan
+    "bask_pathwise_values_info": [_I, _I, _I, _P],
 }
 
 # filled by library(): seconds to build or load, whether nvcc built it, the

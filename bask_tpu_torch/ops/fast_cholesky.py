@@ -145,16 +145,33 @@ def _layout_from_invs(invs):
     return _offsets([iv.shape[-1] for iv in invs])
 
 
-def block_forward_solve(L, invs, y):
+def _check_nb(L, invs, nb):
+    """The panel width comes from ``invs``; an ``nb`` given beside them
+    must be the one :func:`block_cholesky` made them with."""
+    if nb is None:
+        return
+    n = L.shape[-1]
+    widths = [iv.shape[-1] for iv in invs]
+    if widths != ([n] if n <= nb else _panel_sizes(n, nb)):
+        raise ValueError(f"nb={nb} disagrees with the diagonal-block inverses "
+                         f"(panel widths {widths} for n={n})")
+
+
+def block_forward_solve(L, invs, y, nb: int | None = None):
     """w = L^-1 y for ``y`` of shape (..., n), with the cached
     diagonal-block inverses (the one-column case of
-    :func:`block_solve_lower_mat`)."""
-    return block_solve_lower_mat(L, invs, y[..., None])[..., 0]
+    :func:`block_solve_lower_mat`). The panel layout comes from ``invs``;
+    ``nb``, where given, must agree with it."""
+    return block_solve_lower_mat(L, invs, y[..., None], nb=nb)[..., 0]
 
 
-def block_solve_lower_mat(L, invs, Y):
+def block_solve_lower_mat(L, invs, Y, nb: int | None = None, precision=None):
     """W = L^-1 Y with cached diagonal-block inverses; Y is (..., n, m).
-    Right-looking: each panel updates the remaining rows in one matmul."""
+    Right-looking: each panel updates the remaining rows in one matmul.
+    ``nb``, where given, must agree with ``invs``. ``precision`` (the JAX
+    package's matmul precision override) is accepted and has no effect:
+    the port's matmuls are full float32."""
+    _check_nb(L, invs, nb)
     n = L.shape[-1]
     if len(invs) == 1 and invs[0].shape[-1] == n:
         return invs[0] @ Y
@@ -168,8 +185,10 @@ def block_solve_lower_mat(L, invs, Y):
     return torch.cat(ws, dim=-2)
 
 
-def block_solve_upper_mat(L, invs, Y):
-    """X = L^-T Y with cached diagonal-block inverses; Y is (..., n, m)."""
+def block_solve_upper_mat(L, invs, Y, nb: int | None = None):
+    """X = L^-T Y with cached diagonal-block inverses; Y is (..., n, m).
+    ``nb``, where given, must agree with ``invs``."""
+    _check_nb(L, invs, nb)
     n = L.shape[-1]
     if len(invs) == 1 and invs[0].shape[-1] == n:
         return invs[0].transpose(-1, -2) @ Y

@@ -21,8 +21,8 @@ it per draw). There is no Pallas kernel for it. Run op by op, the port
 wrote every (draws, queries, features) and (draws, queries, points)
 intermediate to device memory, a 1 GiB slab at a time.
 
-What bounds it on an H100: arithmetic. The count that defines its bound
-(:func:`k5_operations`), at one column: per (query, feature) pair
+What bounds it on an H100: arithmetic. The count that defines PR 10's
+bound (:func:`k5_operations`), at one column: per (query, feature) pair
 ``2d + 4`` float32 operations (the d-long dot, 2d; the phase; the cosine
 counted as one; the multiply-add into the sum, 2), per (query, training
 point) pair ``2d + 8`` (the scaled difference and its square per
@@ -32,28 +32,42 @@ points the mask keeps count. At the batch ask (256 rows, 65,536
 queries, 1,024 features, n = 1,000 of 1,024 points, d = 15) that is
 1.22e12 operations (1.24e12 with the padded points), 18.2 ms at the
 card's 67 TFLOP/s outside the tensor cores, against ~0.1 GB of inputs
-and output (0.03 ms at 3.35 TB/s).
+and output (0.03 ms at 3.35 TB/s). The 2d of each pair are depth-d
+products, which the tensor cores can do: :func:`k5_operations_split`
+splits the same count into 1.02e12 of them (2.06 ms at 495 TFLOP/s TF32)
+and 2.03e11 others (3.03 ms at 67 TFLOP/s), a least time of 3.03 ms
+(:func:`k5_bound_ms`). Above that bound lies the design's practical
+floor: 5.07e10 transcendental results (a cosine, or a root and an
+exponential) at 16 a clock per SM on the MUFU, ~12 ms at 1.98 GHz.
 
 What the design does about it (``csrc/pathwise.cu``): nothing but the
-arithmetic reaches the card's memory. One thread per query keeps the
-query in registers and R <= 8 sums; the block stages 64 features (then
-64 training points, scaled by 1/ls) at a time in shared memory and every
-thread reads them as broadcasts, so the kernel reads its inputs from L2
-once a block and writes each output once. It is simple and right first:
-the dots and distances run on the FP32 pipes, with full-precision
-``cosf`` and ``expf``; the tensor cores (3xTF32, as K4 does) are later
-work.
+arithmetic reaches the card's memory, and the depth-d products run on
+the tensor cores. For d <= 31 a block of 8 warps owns 256 queries of one
+row (128 at d > 15), kept as split TF32 fragments in registers; features
+and training points stream through double-buffered shared memory in
+stages of 64; each product is 3xTF32 (``mma.sync.m16n8k8``, as K4), the
+cosine and the Matern run on the accumulator fragments in registers, and
+each thread's rows collect their sums by one FMA per element and column.
+For d >= 32 PR 10's design stays: one thread per query on the FP32
+pipes.
 
-Numerics, shared by the kernel and the plain version so that both
-compute one function: the cosine is exact to a few ulps (the Matern-1/2
-frequencies have a Cauchy tail, arguments of 1e3-1e5 occur); the
-distance is formed from differences of the scaled coordinates, summed
-in dimension order, never as norms minus a dot. A float32 argument near
-1e5 is off by up to ~1e-2 rad, so the kernel sums the argument of a
-feature that may pass 256 for some query of its block in float64 and
-reduces it by 2 pi there (the float64 plain version is exact; the
-float32 one keeps the float32 argument, as the JAX package's float32
-program does).
+Numerics, shared by both kernels and the plain version so that all
+compute one function: the cosine is within a few 1e-7 absolute (the
+Matern-1/2 frequencies have a Cauchy tail, arguments of 1e3-1e5 occur);
+every sum runs in a fixed order. The tensor-core kernel centres the
+points on the unit box's midpoint (1/2 in every dimension, a centre no
+input can change: a NaN query gives NaN at that query only), takes the
+cosine's argument in revolutions from the centred dot plus the phase
+reduced in float64 (so subtracting the nearest integer reduces it exactly) and the
+distance as |q~|^2 + |x~|^2 - 2 <q~, x~> of the centred, scaled points,
+formed again from differences for a near pair (d2 under 1/64 of the
+norms, where the Matern-1/2 root would magnify the rounding); 3xTF32
+carries each operand to ~2^-21 (``tests/test_torch_pathwise_values.py``
+emulates the arithmetic). The FP32 kernel forms the distance from
+differences. Both take the argument of a feature that may pass 256 rad
+for some query of its block in float64 and reduce it by 2 pi there (the
+float64 plain version is exact; the float32 one keeps the float32
+argument, as the JAX package's float32 program does).
 
 On a CUDA float32 tensor :func:`pathwise_values` launches the kernel
 (and raises if it cannot); on a CPU tensor it runs
@@ -69,7 +83,8 @@ import torch
 
 from .kernels import matern_from_d2
 
-__all__ = ["pathwise_values", "pathwise_values_plain", "k5_operations"]
+__all__ = ["pathwise_values", "pathwise_values_plain", "k5_operations", "k5_operations_split",
+           "k5_bound_ms"]
 
 _NU_CODE = {0.5: 0, 1.5: 1, 2.5: 2, float("inf"): 3}
 _MAX_R = 8  # columns a launch; more are launched in groups
@@ -82,6 +97,32 @@ def k5_operations(B: int, m: int, n_features: int, n_points: int, d: int, r: int
     columns and the ``n_points`` the mask keeps (0 without the cross
     term)."""
     return float(B) * m * (n_features * (2 * d + 2 + 2 * r) + n_points * (2 * d + 6 + 2 * r))
+
+
+def k5_operations_split(B: int, m: int, n_features: int, n_points: int, d: int,
+                        r: int = 1) -> tuple:
+    """:func:`k5_operations` split by the unit that can do the work:
+    ``(depth-d products, everything else)``, the products ``2d`` per pair
+    (tensor cores), the rest on the FP32 pipes; they sum to
+    :func:`k5_operations`."""
+    products = float(B) * m * (n_features + n_points) * 2 * d
+    return products, k5_operations(B, m, n_features, n_points, d, r) - products
+
+
+# published dense peaks of one H100 SXM at 700 W (NVIDIA's datasheet)
+_TF32_FLOPS, _F32_FLOPS, _HBM_BYTES_PER_S = 495e12, 67e12, 3.35e12
+
+
+def k5_bound_ms(B: int, m: int, n_features: int, n_points: int, d: int, r: int,
+                n_bytes: float) -> tuple:
+    """(the least milliseconds of one call, what bounds it): the larger
+    of ``n_bytes`` over the HBM rate, the depth-d products over the TF32
+    tensor-core rate and the other operations over the FP32 rate (the
+    units run at once)."""
+    products, other = k5_operations_split(B, m, n_features, n_points, d, r)
+    t_bytes = n_bytes / _HBM_BYTES_PER_S
+    t_ops = max(products / _TF32_FLOPS, other / _F32_FLOPS)
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def pathwise_values_plain(nu, Xq, omega, phase, W, coef, X=None, inv_ls=None, V=None, amp=None):
@@ -129,6 +170,19 @@ def pathwise_values(nu, Xq, omega, phase, W, coef, X=None, inv_ls=None, V=None, 
 
 
 pathwise_values.launches = 0
+
+
+def _plan(d: int, r: int, nu: float) -> dict:
+    """K5's launch plan on the current card for ``d``, ``r`` columns and
+    ``nu``: the kernel, dynamic shared memory per block, queries per
+    block, resident blocks per SM."""
+    from ._cuda import check, library
+
+    info = (ctypes.c_int * 4)()
+    check(library().bask_pathwise_values_info(d, min(r, _MAX_R), _NU_CODE[nu], info),
+          "bask_pathwise_values_info")
+    return {"kernel": "pathwise_mma_kernel" if info[0] else "pathwise_values_kernel",
+            "smem_bytes": info[1], "queries_per_block": info[2], "blocks_per_sm": info[3]}
 
 
 def _launch(nu, Xq, omega, phase, W, coef, X, inv_ls, V, amp):

@@ -50,11 +50,16 @@ Phases, each printing one result line:
    the (256, 1024, 1024) factorization A/B against ``cholesky_ex``,
    4 of 256 pathwise draws held to a float64 recomputation (and a TF32
    control through K5's plain version that must miss), K5 (the draws'
-   values, ``csrc/pathwise.cu``) launched twice in each ask (one chunk of
-   256 draws), against its float64 plain version on the 4 draws' inputs
-   at the full shape, timed alone (profiler and CUDA events) beside its
-   plain version and its bound, and a profiled ask under 700 device
-   operations;
+   values, ``csrc/pathwise.cu``, its tensor-core kernel at d = 15)
+   launched twice in each ask (one chunk of 256 draws), against its
+   float64 plain version on the 4 draws' inputs at the full shape, timed
+   alone (profiler and CUDA events) beside its plain version, its bound
+   with the depth-d products on the tensor cores, its launch plan, and,
+   computed from the inputs on the report line only, PR 10's all-FP32
+   bound, the modelled MUFU floor and the host's estimate of the share of
+   its features on the float64 argument; the same launch at nu = 1/2 on seeded synthetic
+   inputs (``k5_synthetic``), against float64 and timed; nvcc's report of
+   K5's instantiations; and a profiled ask under 700 device operations;
 9. on phase 6's fitted Optimizer (n = 500, d = 15): a warm tell with the
    PVRS polish and one with the EI polish (each polished value no lower
    than its start under the same draws), the chain's diagnostics, the
@@ -1108,29 +1113,103 @@ def _k5_args(gp, spec, rows, rand, Xq):
     return calls[1]
 
 
-def _k5_phase8(gp, spec, rows, rand, Xq, keep):
-    """K5 at the batch ask's query launch: against its plain version in
-    float64 on the inputs of the draws ``keep`` (K5_REL_TOL of the largest
-    |value|), then all rows' launch timed alone (profiler, and CUDA
-    events over the wrapper), its plain version over the same rows in
-    chunks of 4 draws (the op-by-op path's chunks), and the bound from
-    this launch's inputs by ``pathwise_values.k5_operations``."""
+# K5's floor by the MUFU, modelled (not measured): transcendental results
+# (a cosine per (query, feature) pair, a root and an exponential per
+# (query, real point) pair) at 16 a clock per SM on 132 SMs at the H100
+# SXM's 1.98 GHz boost clock
+MUFU_PER_S = 16 * 132 * 1.98e9
+
+
+def k5_costs(B, m, M, n_real, d, R, n_bytes):
+    """K5's bounds for one call, computed from its shapes (none is
+    measured): the least time with the depth-d products on the tensor
+    cores (``bound_ms``, by ``pathwise_values.k5_bound_ms``), PR 10's
+    all-FP32 count (``bound_ms_f32``) and the modelled MUFU floor of the
+    transcendentals (``mufu_floor_ms``)."""
+    from bask_tpu_torch.ops import pathwise_values as pv
+
+    ops = pv.k5_operations(B, m, M, n_real, d, R)
+    products, other = pv.k5_operations_split(B, m, M, n_real, d, R)
+    bound, by = pv.k5_bound_ms(B, m, M, n_real, d, R, n_bytes)
+    f32_bound, f32_by = bound_ms(n_bytes, ops)
+    transcendental = float(B) * m * (M + 2 * n_real)
+    return {"operations": ops, "tensor_core_operations": products, "other_operations": other,
+            "bytes": n_bytes, "bound_ms": bound, "bound_by": by, "bound_ms_f32": f32_bound,
+            "bound_by_f32": f32_by, "transcendentals": transcendental,
+            "mufu_floor_ms": 1e3 * transcendental / MUFU_PER_S}
+
+
+def k5_wide_share(Xq, omega, queries_per_block):
+    """The host's estimate of the share of (block, feature) pairs that the
+    tensor-core kernel sends to the float64 argument: its rule re-derived
+    here from the inputs (shared queries ``Xq`` (m, d) centred on 1/2, a
+    block's largest |q - c| times the feature's sum of |omega / 2 pi|
+    above 256 / (2 pi)), not a count the kernel makes."""
+    import torch
+
+    m, d = Xq.shape
+    qc = (Xq - 0.5).abs().amax(1)
+    blocks = -(-m // queries_per_block)
+    qc = torch.cat([qc, qc[-1:].expand(blocks * queries_per_block - m)])
+    qmax = qc.view(blocks, queries_per_block).amax(1)
+    turns = (omega / (2 * math.pi)).abs().sum(-1)  # (B, M)
+    wide = qmax[None, :, None] * turns[:, None, :] > 256.0 / (2 * math.pi)
+    return float(wide.float().mean())
+
+
+def k5_synthetic(dev, nu, B, m, R=1):
+    """Seeded arguments of a K5 launch at a batch ask's query shape (B
+    rows, m shared queries uniform in the unit box, 1,024 features, the
+    batch dataset's BATCH_OBS points padded to BATCH_PAD): frequencies by
+    ``pathwise.sample_frequencies`` at lengthscales drawn from U(0.2, 0.6)
+    and amplitudes from U(0.5, 2); W and V standard normal, V zero on the
+    padded rows."""
+    import torch
+
+    from bask_tpu_torch.models import pathwise
+    from bask_tpu_torch.ops.gram import FusedSpec
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    kw = dict(generator=gen, device=dev)
+    rand = pathwise.draw_pathwise_randoms(gen, nu, 1024, N_DIM, BATCH_PAD, R, batch=(B,),
+                                          device=dev)
+    inv_ls = 1.0 / (0.2 + 0.4 * torch.rand(B, N_DIM, **kw))
+    amp = 0.5 + 1.5 * torch.rand(B, **kw)
+    spec = FusedSpec(nu=nu, n_ls=N_DIM, has_const=True, has_white=False)
+    omega = pathwise.sample_frequencies(spec, inv_ls, rand.z, rand.u)
+    Xp = np.full((BATCH_PAD, N_DIM), 0.5)
+    Xp[:BATCH_OBS] = batch_dataset()[0]
+    V = rand.e.clone()
+    V[:, BATCH_OBS:] = 0.0
+    Xq = torch.rand(m, N_DIM, **kw)
+    return (nu, Xq, omega, rand.phase, rand.w, torch.sqrt(2.0 * amp / 1024),
+            torch.tensor(Xp, dtype=torch.float32, device=dev), inv_ls, V, amp)
+
+
+def k5_check_and_time(args, keep, plain=True):
+    """K5 on ``args`` against its float64 plain version on rows ``keep``
+    (K5_REL_TOL of the largest |value|), its device time alone (profiler)
+    and through the wrapper (CUDA events), its plain version in chunks of 4
+    rows (``plain``), its bound; its launch plan, and under
+    ``computed_from_inputs`` what is computed and not measured (the
+    costs, the other bounds, the host's estimate of the wide share);
+    launches uncounted."""
     import torch
 
     from bask_tpu_torch.ops import pathwise_values as pv
 
-    sub = type(rand)(*(None if r is None else r[keep] for r in rand))
-    args = _k5_args(gp, spec, rows[keep], sub, Xq)
-    out = _uncounted(lambda: pv.pathwise_values(*args))
-    ref = pv.pathwise_values_plain(*(a.double() if torch.is_tensor(a) else a for a in args))
+    nu, Xq, omega, phase, W, coef, X, inv_ls, V, amp = args
+    B, M, d = omega.shape
+    m, R, n_pad = Xq.shape[-2], W.shape[-1], X.shape[-2]
+    sub = (nu, Xq, omega[keep], phase[keep], W[keep], coef[keep], X, inv_ls[keep], V[keep],
+           amp[keep])
+    out = _uncounted(lambda: pv.pathwise_values(*sub))
+    ref = pv.pathwise_values_plain(*(a.double() if torch.is_tensor(a) else a for a in sub))
     err = float((out.double() - ref).abs().max())
     scale = float(ref.abs().max())
     finite = bool(torch.isfinite(out).all())
     del out, ref
-    args = _k5_args(gp, spec, rows, rand, Xq)
-    nu, Xq_, omega, phase, W, coef, X, inv_ls, V, amp = args
-    B, M, d = omega.shape
-    m, R, n_pad = Xq_.shape[-2], W.shape[-1], X.shape[-2]
+    plan = pv._plan(d, R, nu)
 
     def launch():
         return pv.pathwise_values(*args)
@@ -1138,22 +1217,43 @@ def _k5_phase8(gp, spec, rows, rand, Xq, keep):
     def plain_in_chunks():
         for lo in range(0, B, 4):
             sl = slice(lo, lo + 4)
-            pv.pathwise_values_plain(nu, Xq_, omega[sl], phase[sl], W[sl], coef[sl], X,
+            pv.pathwise_values_plain(nu, Xq, omega[sl], phase[sl], W[sl], coef[sl], X,
                                      inv_ls[sl], V[sl], amp[sl])
 
-    ms, alone, plain_ms = _uncounted(lambda: (
-        cuda_ms(launch, reps=5), alone_us(launch, "pathwise_values_kernel", reps=3),
-        cuda_ms(plain_in_chunks, reps=2)))
+    ms, alone = _uncounted(lambda: (cuda_ms(launch, reps=5),
+                                    alone_us(launch, plan["kernel"], reps=3)))
+    plain_ms = _uncounted(lambda: cuda_ms(plain_in_chunks, reps=2)) if plain else None
+    n_real = int((V.abs().sum((0, 2)) != 0).sum())
     n_bytes = sum(a.numel() * a.element_size() for a in args[1:]) + 4 * B * m * R
-    ops = pv.k5_operations(B, m, M, BATCH_OBS, d, R)
-    bound, by = bound_ms(n_bytes, ops)
-    return {"shape": {"rows": B, "queries": m, "features": M, "n_pad": n_pad,
-                      "n_real": BATCH_OBS, "d": d, "R": R},
-            "checked_draws": list(keep), "max_abs_err": err, "scale": scale,
+    costs = k5_costs(B, m, M, n_real, d, R, n_bytes)
+    return {"nu": nu, "shape": {"rows": B, "queries": m, "features": M, "n_pad": n_pad,
+                                "n_real": n_real, "d": d, "R": R},
+            "checked_rows": list(keep), "max_abs_err": err, "scale": scale,
             "tol": K5_REL_TOL * scale, "finite": finite, "ms": ms,
             "alone_ms": None if alone is None else alone / 1e3, "plain_ms": plain_ms,
-            "operations": ops, "bytes": n_bytes, "bound_ms": bound, "bound_by": by,
-            "library_ms": None, "ok": finite and err <= K5_REL_TOL * scale}
+            "bound_ms": costs.pop("bound_ms"), "bound_by": costs.pop("bound_by"),
+            "library_ms": None, "ok": finite and err <= K5_REL_TOL * scale, "plan": plan,
+            "computed_from_inputs": {
+                **costs, "wide_share_host_estimate":
+                    k5_wide_share(Xq, omega, plan["queries_per_block"])}}
+
+
+def _k5_phase8(gp, spec, rows, rand, Xq, keep):
+    """K5 at the batch ask's query launch (the inputs of ``rows``, as the
+    path forms them): against its plain version in float64 on the draws
+    ``keep``, timed alone and through the wrapper beside its plain version
+    in chunks of 4 draws (the op-by-op path's chunks), its bounds, its
+    plan and the share of its features on the float64 argument; then the
+    same launch at nu = 1/2 on seeded synthetic inputs (``k5_synthetic``);
+    nvcc's report of its instantiations."""
+    args = _uncounted(lambda: _k5_args(gp, spec, rows, rand, Xq))
+    ask = k5_check_and_time(args, keep)
+    del args
+    half = k5_check_and_time(k5_synthetic(Xq.device, 0.5, B=rows.shape[0], m=Xq.shape[0]), keep,
+                             plain=False)
+    return {**ask, "at_nu_half": half,
+            "ptxas": [{"entry": e, "registers": r, "spill_bytes": sp, "static_smem_bytes": sm}
+                      for e, r, sp, sm in _ptxas_entries("pathwise_")]}
 
 
 def phase_batch_ask(dev):
@@ -1303,6 +1403,10 @@ def phase_batch_ask(dev):
             per_step[f"ask {i}"]["K5"] == k5_per_ask >= 1 for i in (1, 2)),
         "K5 agrees with its plain version": k5["ok"],
         "K5 timed under the profiler": k5["alone_ms"] is not None,
+        "the ask's K5 launch takes the tensor-core kernel":
+            k5["plan"]["kernel"] == "pathwise_mma_kernel",
+        "K5 at nu = 1/2 agrees with its plain version": k5["at_nu_half"]["ok"],
+        "K5 at nu = 1/2 timed under the profiler": k5["at_nu_half"]["alone_ms"] is not None,
         f"a profiled ask runs 1-{ASK_MAX_DEVICE_OPS - 1} device operations":
             0 < ask_profile["device_ops"] < ASK_MAX_DEVICE_OPS,
     }
@@ -1312,9 +1416,12 @@ def phase_batch_ask(dev):
     k3_ab = {"shape": factor["shape"], "blocked_ms": float(np.median(factor["ms_turns"]["blocked"])),
              "library_ms": float(np.median(factor["ms_turns"]["cholesky_ex"])),
              "launches_per_factorization": factor["k3_launches"], "per_launch": factor["k3_launch"]}
-    k5_row = {key: k5[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                       "library_ms")}
-    k5_row["at_batch_ask"] = k5
+    # the kernels line takes what this run measured, and the bound
+    row_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    launch_keys = ("nu", "shape", "checked_rows", "scale", "tol", "alone_ms") + row_keys
+    k5_row = {key: k5[key] for key in row_keys}
+    k5_row["at_batch_ask"] = {**{key: k5[key] for key in launch_keys},
+                              "at_nu_half": {key: k5["at_nu_half"][key] for key in launch_keys}}
     return launches, k1, k4, k3_ab, k5_row
 
 

@@ -44,8 +44,8 @@ def build_other(csrc: str):
     """(the library built from ``csrc``'s gram*.cu, nvcc's report)."""
     from bask_tpu_torch.ops import _cuda
 
-    _cuda._BUILD.mkdir(parents=True, exist_ok=True)
-    so = _cuda._BUILD / "k4_other.so"
+    _cuda._build_dir.mkdir(parents=True, exist_ok=True)
+    so = _cuda._build_dir / "k4_other.so"
     sources = sorted(glob.glob(os.path.join(csrc, "gram*.cu")))
     if not sources:
         raise RuntimeError(f"no gram*.cu under {csrc}")

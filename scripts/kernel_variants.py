@@ -148,10 +148,10 @@ def build(variants: dict) -> dict:
     kernel's entries)}, one nvcc per variant."""
     from bask_tpu_torch.ops import _cuda
 
-    _cuda._BUILD.mkdir(parents=True, exist_ok=True)
+    _cuda._build_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for i, (key, src) in enumerate(variants.items()):
-        cu = _cuda._BUILD / f"variant_{i}.cu"
+        cu = _cuda._build_dir / f"variant_{i}.cu"
         cu.write_text(src)
         so = cu.with_suffix(".so")
         cmd = [_cuda._nvcc(), _cuda._ARCH, "-std=c++17", "-O3", "-shared",

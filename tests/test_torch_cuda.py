@@ -27,9 +27,12 @@ replayed from CUDA graphs bit-equal to the eager chain (K4, K2 on warped
 X, K1, and bucket 64's cholesky_ex) with the same launch counts, and no
 graph captured after ``warmup_optimizer``; K5 (the pathwise draws'
 values) against its float64 plain version for every nu, R 1, 3, 8 and
-11, n_pad 512 and 1,024, d 15 and 40, shared and per-row queries, a NaN
-row, its refusals, and the batch ask's draws launching it twice without
-a (m, n_pad) slab.
+11, n_pad 512 and 1,024, d 1, 15, 16, 17, 32 and 40 (the tensor-core
+kernel up to 31, PR 10's FP32 kernel past it), shared and per-row
+queries, with and without the cross term, Cauchy-tailed features on the
+float64 path, bit-equal across launches, its launch plan, a NaN row, its
+refusals, and the batch ask's draws launching it twice without a
+(m, n_pad) slab.
 
 Every test here needs a CUDA card and skips without one. The file
 imports no JAX, so it also runs where only the port is installed:
@@ -967,12 +970,13 @@ K5_REL_TOL = DRAW_REL_TOL / 3
 
 
 def _k5_inputs(dev, nu, B=4, m=1000, n_pad=512, d=15, R=1, per_row=False, n=500, M=1024,
-               seed=0):
+               seed=0, ls=(0.2, 0.6)):
     """Seeded inputs of one K5 call: (Xq, omega, phase, W, coef, X, inv_ls,
     V, amp) float32 on the card, as ``models.pathwise._draw_values`` forms
-    them (omega from the spectral measure of nu; V zero on padded rows)."""
+    them (omega from the spectral measure of nu at lengthscales drawn from
+    ``ls``; V zero on padded rows)."""
     rng = np.random.RandomState(seed)
-    inv_ls = 1.0 / rng.uniform(0.2, 0.6, (B, d))
+    inv_ls = 1.0 / rng.uniform(*ls, (B, d))
     scale = 1.0 if math.isinf(nu) else np.sqrt(2 * nu / (2.0 * rng.gamma(nu, size=(B, M, 1))))
     omega = rng.randn(B, M, d) * scale * inv_ls[:, None, :]
     amp = rng.uniform(0.5, 2.0, B)
@@ -1046,6 +1050,34 @@ def test_pathwise_values_kernel_nan_row_and_determinism(dev):
         assert torch.equal(out[[0, 2, 3]], first[[0, 2, 3]])
 
 
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("d", [15, 17, 40])
+def test_pathwise_values_kernel_nan_or_huge_query(dev, d, per_row):
+    """A NaN coordinate in query 10 (inside the first block, of any
+    kernel) gives NaN at that query only, in every row when the queries
+    are shared, and leaves every other value bit-equal, with and without
+    the cross term; a huge finite query there leaves every value within
+    K5_REL_TOL of the float64 plain version."""
+    from bask_tpu_torch.ops import pathwise_values as pv
+
+    args = _k5_inputs(dev, 2.5, B=3, m=777, n_pad=256, n=200, M=320, d=d, per_row=per_row,
+                      seed=7)
+    at = (1, 10) if per_row else (10,)  # the query in Xq; its values in every row if shared
+    for a in (args, args[:5]):
+        first = pv.pathwise_values(2.5, *a)
+        bad = [a[0].clone(), *a[1:]]
+        bad[0][at + (3,)] = float("nan")
+        out = pv.pathwise_values(2.5, *bad)
+        torch.cuda.synchronize()
+        hit = torch.zeros(out.shape[:2], dtype=torch.bool, device=dev)
+        hit[at if per_row else (slice(None), 10)] = True
+        assert torch.isnan(out[hit]).all()
+        assert torch.equal(out[~hit], first[~hit])
+        bad[0] = a[0].clone()
+        bad[0][at + (0,)] = 1e4
+        _check_k5(2.5, bad)
+
+
 def test_pathwise_values_kernel_refuses(dev):
     from bask_tpu_torch.ops import pathwise_values as pv
 
@@ -1061,6 +1093,76 @@ def test_pathwise_values_kernel_refuses(dev):
     wide = _k5_inputs(dev, 2.5, d=257, m=10, n_pad=16, n=8, M=8, B=1)
     with pytest.raises(ValueError):
         pv.pathwise_values(2.5, *wide)
+
+
+# d: 1 and 15 pad to 16 (the tensor-core kernel, 256 queries a block), 16
+# and 17 to 32 (128 a block), 32 and 40 take PR 10's FP32 kernel
+K5_WIDTHS = [1, 15, 16, 17, 32, 40]
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("d", K5_WIDTHS)
+@pytest.mark.parametrize("nu", [0.5, 1.5, 2.5, math.inf])
+def test_pathwise_values_kernel_every_width(dev, nu, d, per_row):
+    """Each nu at each width, shared and per-row queries and points, R 1,
+    3 or 8 (by d), with and without the cross term, m = 777 (a ragged last
+    block of both kernels): within K5_REL_TOL of the float64 plain version
+    and bit-equal across two launches; at nu = 1/2 with lengthscales of
+    0.05 the Cauchy-tailed features take the float64 argument."""
+    from bask_tpu_torch.ops import pathwise_values as pv
+
+    R = (1, 3, 8)[K5_WIDTHS.index(d) % 3]
+    args = _k5_inputs(dev, nu, B=3, m=777, n_pad=256, n=200, M=320, d=d, R=R, per_row=per_row,
+                      seed=5, ls=(0.05, 0.05) if nu == 0.5 else (0.2, 0.6))
+    for a in (args, args[:5]):
+        first = _check_k5(nu, a)
+        assert torch.equal(first, pv.pathwise_values(nu, *a))
+    plan = pv._plan(d, R, nu)
+    assert plan["kernel"] == ("pathwise_mma_kernel" if d <= 31 else "pathwise_values_kernel")
+    assert plan["blocks_per_sm"] >= 1
+
+
+# the device operations of one K5 call at the batch ask's d, profiled in a
+# process of its own: a torch.profiler session after earlier ones in a
+# process can record nothing on the card (PERF.md section 7)
+_PROFILE_ONE_K5 = """
+import json, sys, torch
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, sys.argv[1])
+import test_torch_cuda as t
+from bask_tpu_torch.ops import pathwise_values as pv
+args = t._k5_inputs(torch.device("cuda", 0), 2.5, m=4096)
+pv.pathwise_values(2.5, *args)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    pv.pathwise_values(2.5, *args)
+    torch.cuda.synchronize()
+print(json.dumps([e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]))
+"""
+
+
+def test_pathwise_values_tensor_core_plan(dev):
+    """The batch ask's launch (d 15, R 1) takes the tensor-core kernel,
+    256 queries a block, at least two blocks resident per SM; R 8 as well;
+    one device operation a call, the kernel the plan names."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from bask_tpu_torch.ops import pathwise_values as pv
+
+    for R in (1, 8):
+        plan = pv._plan(15, R, 2.5)
+        assert plan["kernel"] == "pathwise_mma_kernel" and plan["queries_per_block"] == 256
+        assert plan["blocks_per_sm"] >= 2, plan
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", _PROFILE_ONE_K5, here], capture_output=True,
+                          text=True, cwd=os.path.dirname(here), timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    names = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(names) == 1 and "pathwise_mma_kernel" in names[0], names
 
 
 def test_pathwise_topk_hyper_launches_k5_without_slabs(dev):

@@ -34,6 +34,7 @@ from bask_tpu_torch.models import gp as gpc  # noqa: E402
 from bask_tpu_torch.models import pathwise as tpw  # noqa: E402
 from bask_tpu_torch.ops import pathwise_values as pv  # noqa: E402
 from bask_tpu_torch.ops.gram import FusedSpec  # noqa: E402
+from bask_tpu_torch.ops.kernels import matern_from_d2  # noqa: E402
 
 REL_TOL = 1e-10  # of max |value|, float64
 NUS = [0.5, 1.5, 2.5, math.inf]
@@ -288,3 +289,236 @@ def test_draws_per_chunk_at_the_batch_ask():
     assert tpw.draws_per_chunk(256, 65536, 15, 0, 4) == 256
     assert tpw.draws_per_chunk(8192, 65536, 15, 0, 4) == 4096
     assert tpw.draws_per_chunk(256, 65536, 15, 15, 4) == 5
+
+
+# -- the tensor-core kernel's arithmetic, emulated ------------------------
+
+# chip_smoke.K5_REL_TOL: K5 against its plain version in float64 on the
+# same float32 inputs, of the largest |value|
+K5_REL_TOL = 1e-4
+_WIDE_REV = 256.0 / (2 * math.pi)  # csrc/pathwise.cu: kWideArg in revolutions
+_MUFU_COS_ERR = 2.0 ** -20.5  # cos.approx.f32's absolute error (PTX ISA), modelled
+_NEAR_SHARE = 1.0 / 64.0  # csrc/pathwise.cu: kNearShare
+
+
+def _f32(x):
+    return x.float().double()
+
+
+def _tf32(x):
+    """float32 -> TF32 by round to nearest, ties away, on the bits
+    (``split_tf32``'s hi)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_dropped(x):
+    """What the tensor cores read of a float32 given as TF32 (``lo``):
+    the low 13 mantissa bits dropped."""
+    return (x.float().contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mma(C, A, Bt, passes):
+    """C + A Bt^T as the kernel's ``mma.sync.m16n8k8`` steps accumulate it
+    from float32 operands: per k-step of 8, lo.hi, hi.lo, hi.hi (3xTF32;
+    ``passes`` 1: hi.hi alone), each product exact and each step's sum
+    rounded once to float32."""
+    ah, bh = _tf32(A), _tf32(Bt)
+    al, bl = _tf32_dropped(A - ah), _tf32_dropped(Bt - bh)
+    terms = [(al, bh), (ah, bl), (ah, bh)] if passes == 3 else [(ah, bh)]
+    for k0 in range(0, A.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        for a, b in terms:
+            C = _f32(C + a[..., ks].double() @ b[..., ks].double().transpose(-1, -2))
+    return C
+
+
+def _quad_sums(part, vals, wv):
+    """Continue the four partial sums (4, B, m, R) of a row's quad by the
+    columns of ``vals`` (B, m, N) weighted by ``wv`` (B, N, R): thread t
+    takes columns 8n + 2t, then 8n + 2t + 1, of each n-tile, one float32
+    FMA each."""
+    quad = torch.arange(4)
+    for j0 in range(0, vals.shape[-1], 8):
+        for q in (0, 1):
+            cols = j0 + 2 * quad + q  # (4,)
+            v = vals[:, :, cols].permute(2, 0, 1)[..., None]  # (4, B, m, 1)
+            w = wv[:, cols].permute(1, 0, 2)[:, :, None, :]  # (4, B, 1, R)
+            part = _f32(part + v * w)
+    return part
+
+
+def _emulated_k5(nu, Xq, omega, phase, W, coef, X, inv_ls, V, amp, passes=3,
+                 wide_rev=_WIDE_REV, near_share=_NEAR_SHARE, seed=0):
+    """The values as ``pathwise_mma_kernel`` forms them from float32 inputs
+    (d <= 31), float64 tensors holding float32 values, and the share of
+    (block, feature) pairs on the float64 path. The centre c is 1/2 in
+    every dimension; the features' argument in revolutions, ph' =
+    frac((ph + <c, om>) / 2 pi) in float64 rounded to float32, plus
+    <q - c, om / 2 pi> through
+    :func:`_mma`; cos(2 pi (u - rint u)) with cos.approx's error modelled
+    as a seeded +-2^-20.5; a feature whose |q - c|max sum|om / 2 pi| passes
+    256 / (2 pi) in a block of 256 queries (128 at d > 15) takes the
+    float64 argument reduced by 2 pi, then the cosine; the distance from
+    :func:`_mma` with C = |q~|^2 (an FMA chain), A = [q~, 1], B = [-2 x~,
+    |x~|^2] (|x~|^2 from four partial chains of the quad), formed again
+    from differences (an FMA chain) where it is below ``near_share`` of
+    |q~|^2 plus the largest |x~|^2 of the point's n-tile, clamped at 0;
+    the Matern in float64 of the float32 d2 (its float32 rounding is the
+    grams' and is not what this emulates); coef W and amp V scaled in, one
+    float32 FMA an element into the quad's partials, then (p0 + p1) +
+    (p2 + p3)."""
+    B, M, d = omega.shape
+    kd = 16 if d < 16 else 32
+    block = 256 if kd == 16 else 128
+    gen = torch.Generator().manual_seed(seed)
+    Xq = Xq.expand(B, *Xq.shape[-2:]) if Xq.ndim == 2 else Xq
+    m = Xq.shape[1]
+
+    def pad(t, fill=None):
+        out = torch.nn.functional.pad(t.double(), (0, kd - d))
+        if fill is not None:
+            out[..., d] = fill
+        return out
+
+    c = torch.full((B, d), 0.5, dtype=torch.float64)
+    qc = _f32(Xq.double() - c[:, None])
+    om_rev = _f32(omega.double() * float(np.float32(1 / (2 * math.pi))))
+    turns = (phase.double() + (c[:, None, :] * omega.double()).sum(-1)) / (2 * math.pi)
+    ph_rev = _f32(turns - torch.round(turns))
+    u = _mma(ph_rev[:, None, :].expand(B, m, M), pad(qc, 1.0).float(), pad(om_rev).float(),
+             passes)
+    f = u - torch.round(u)
+    noise = (2 * torch.rand(B, m, M, generator=gen, dtype=torch.float64) - 1) * _MUFU_COS_ERR
+    cs = torch.cos(_f32(2 * math.pi * f)) + noise
+    S = om_rev.abs().sum(-1)  # (B, M)
+    wide_pairs = 0
+    for i0 in range(0, m, block):
+        rows = slice(i0, i0 + block)
+        qmax = qc[:, rows].abs().amax((1, 2))
+        wide = _f32(qmax[:, None] * S) > wide_rev  # (B, M)
+        wide_pairs += int(wide.sum())
+        arg = phase.double()[:, None, :] + Xq[:, rows].double() @ omega.double().transpose(-1, -2)
+        red = _f32(arg - 2 * math.pi * torch.round(arg / (2 * math.pi)))
+        cs[:, rows] = torch.where(wide[:, None, :], _f32(torch.cos(red)), cs[:, rows])
+    part = torch.zeros(4, B, m, W.shape[-1], dtype=torch.float64)
+    part = _quad_sums(part, _f32(cs), _f32(coef.double()[:, None, None] * W.double()))
+    if X is not None:
+        Xb = X.expand(B, *X.shape[-2:]) if X.ndim == 2 else X
+        ils = inv_ls.double()[:, None, :]
+        qs = _f32(qc * ils)
+        xs = _f32(_f32(Xb.double() - c[:, None]) * ils)
+        nq = torch.zeros(B, m, dtype=torch.float64)
+        for k in range(d):
+            nq = _f32(nq + qs[..., k] ** 2)
+        quarters = []
+        for p in range(4):
+            n = torch.zeros(xs.shape[:-1], dtype=torch.float64)
+            for k in range(p * kd // 4, min(d, (p + 1) * kd // 4)):
+                n = _f32(n + xs[..., k] ** 2)
+            quarters.append(n)
+        nx = _f32(_f32(quarters[0] + quarters[1]) + _f32(quarters[2] + quarters[3]))
+        d2 = _mma(nq[:, :, None].expand(B, m, xs.shape[1]), pad(qs, 1.0).float(),
+                  pad(-2.0 * xs, nx).float(), passes)
+        n_x = xs.shape[1]
+        tiles = torch.nn.functional.pad(nx, (0, -n_x % 8)).view(B, -1, 8).amax(-1)
+        nx_max = tiles.repeat_interleave(8, dim=1)[:, :n_x]
+        near = d2 < _f32(near_share * _f32(nq[:, :, None] + nx_max[:, None, :]))
+        if near.any():
+            exact = torch.zeros_like(d2)
+            for k in range(d):
+                diff = _f32(qs[:, :, None, k] - xs[:, None, :, k])
+                exact = _f32(exact + diff * diff)
+            d2 = torch.where(near, exact, d2)
+        kv = _f32(matern_from_d2(torch.clamp(d2, min=0.0), nu))
+        part = _quad_sums(part, kv, _f32(amp.double()[:, None, None] * V.double()))
+    out = _f32(_f32(part[0] + part[1]) + _f32(part[2] + part[3]))
+    return out, wide_pairs / (B * M * (-(-m // block)))
+
+
+def _tc_inputs(nu, d=15, ls=(0.2, 0.6), per_row=False, B=2, m=600, n_pad=512, n=500, M=1024,
+               R=1, seed=0):
+    """Seeded float32 inputs of one K5 call, as the card tests make them
+    (``tests/test_torch_cuda.py::_k5_inputs``): frequencies from the
+    spectral measure of nu at lengthscales drawn from ``ls``, V normal
+    and zero on the padded rows."""
+    rng = np.random.RandomState(seed)
+    inv_ls = 1.0 / rng.uniform(*ls, (B, d))
+    scale = 1.0 if math.isinf(nu) else np.sqrt(2 * nu / (2.0 * rng.gamma(nu, size=(B, M, 1))))
+    omega = rng.randn(B, M, d) * scale * inv_ls[:, None, :]
+    amp = rng.uniform(0.5, 2.0, B)
+    X = np.full((B, n_pad, d) if per_row else (n_pad, d), 0.5)
+    X[..., :n, :] = rng.uniform(size=X[..., :n, :].shape)
+    V = rng.randn(B, n_pad, R)
+    V[:, n:] = 0.0
+    arrays = (rng.uniform(size=(B, m, d) if per_row else (m, d)), omega,
+              rng.uniform(0, 2 * math.pi, (B, M)), rng.randn(B, M, R), np.sqrt(2 * amp / M),
+              X, inv_ls, V, amp)
+    return [torch.tensor(a, dtype=torch.float32) for a in arrays]
+
+
+# (d, lengthscales, per-row queries and points, R): the batch ask's d,
+# lengthscales down to 0.05 on the unit box, the 32-wide layout, and d = 1,
+# where near pairs are common
+TC_CASES = [
+    (15, (0.2, 0.6), False, 1),
+    (15, (0.05, 0.05), True, 3),
+    (17, (0.2, 0.6), True, 1),
+    (1, (0.05, 0.05), False, 1),
+]
+
+
+@pytest.mark.parametrize("case", TC_CASES,
+                         ids=lambda c: "d%d-ls%g-rows%d-R%d" % (c[0], c[1][0], c[2], c[3]))
+@pytest.mark.parametrize("nu", NUS)
+def test_tensor_core_arithmetic_within_k5_tolerance(nu, case):
+    """The kernel's 3xTF32 arithmetic, with and without the cross term,
+    within K5_REL_TOL of the largest |value| from the float64 plain
+    version on the same float32 inputs, for every nu (the Matern-1/2
+    features with their Cauchy tail) and at lengthscale 0.05."""
+    d, ls, per_row, R = case
+    args = _tc_inputs(nu, d=d, ls=ls, per_row=per_row, R=R)
+    for a in (args, args[:5]):
+        full = a + [None] * (9 - len(a))
+        ref = pv.pathwise_values_plain(nu, *(None if t is None else t.double() for t in full))
+        got, share = _emulated_k5(nu, *full)
+        err = float((got - ref).abs().max())
+        assert err <= K5_REL_TOL * float(ref.abs().max()), (err, float(ref.abs().max()), share)
+
+
+@pytest.mark.parametrize("nu", NUS)
+def test_one_pass_tf32_misses_k5_tolerance(nu):
+    """The control: the same arithmetic with the products in plain TF32
+    (hi.hi alone) misses the tolerance on the same data."""
+    args = _tc_inputs(nu)
+    ref = pv.pathwise_values_plain(nu, *(t.double() for t in args))
+    got, _ = _emulated_k5(nu, *args, passes=1)
+    assert float((got - ref).abs().max()) > K5_REL_TOL * float(ref.abs().max())
+
+
+def test_wide_features_need_the_float64_argument():
+    """At nu = 1/2 and lengthscale 0.05 a share of the features takes the
+    float64 argument (none at the RBF); with every feature on the tensor
+    cores instead, the Cauchy tail's arguments put the values outside the
+    tolerance."""
+    args = _tc_inputs(0.5, ls=(0.05, 0.05))[:5] + [None] * 4
+    ref = pv.pathwise_values_plain(0.5, *(None if t is None else t.double() for t in args))
+    tol = K5_REL_TOL * float(ref.abs().max())
+    got, share = _emulated_k5(0.5, *args)
+    assert 0.0 < share < 1.0 and float((got - ref).abs().max()) <= tol
+    all_tc, none = _emulated_k5(0.5, *args, wide_rev=math.inf)
+    assert none == 0.0 and float((all_tc - ref).abs().max()) > tol
+    assert _emulated_k5(math.inf, *(_tc_inputs(math.inf)[:5] + [None] * 4))[1] == 0.0
+
+
+def test_near_pairs_need_the_difference_distance():
+    """At d = 1, nu = 1/2 and lengthscale 0.05 (the card test's case:
+    3 rows, 777 queries, 200 of 256 points) many query-point pairs are
+    near: without forming their d2 again from differences, the
+    norms-minus-dot rounding under the Matern-1/2 root misses the
+    tolerance; with it the values hold."""
+    args = _tc_inputs(0.5, d=1, ls=(0.05, 0.05), B=3, m=777, n_pad=256, n=200, M=320, seed=5)
+    ref = pv.pathwise_values_plain(0.5, *(t.double() for t in args))
+    tol = K5_REL_TOL * float(ref.abs().max())
+    assert float((_emulated_k5(0.5, *args)[0] - ref).abs().max()) <= tol
+    assert float((_emulated_k5(0.5, *args, near_share=0.0)[0] - ref).abs().max()) > tol
