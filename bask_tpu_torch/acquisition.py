@@ -45,6 +45,12 @@ from .models import gp as gpc
 from .ops.linalg import augmented_quadform
 from .utils.stats import norm_cdf, norm_logcdf, norm_pdf
 
+# "on" routes a tell's single acquisition through
+# :func:`evaluate_acquisitions_fused`; anything else makes it return
+# ``None``, so the Optimizer takes the legacy dispatcher, as in the JAX
+# package (whose tests pin the two routes equal)
+FUSED_ACQUISITION = "on"
+
 __all__ = [
     "Acquisition",
     "UncertaintyAcquisition",
@@ -374,7 +380,8 @@ def evaluate_acquisitions_fused(X, gpr, acq, n_samples: int = 10, random_state=N
                                 **kwargs):
     """Evaluate ONE acquisition on the candidate grid X: (1, n_candidates),
     or ``None`` for an acquisition that is neither FullGP, uncertainty
-    nor sample acquisition (the caller then takes
+    nor sample acquisition, and for every acquisition while
+    :data:`FUSED_ACQUISITION` is not "on" (the caller then takes
     :func:`evaluate_acquisitions`, as in the JAX package).
 
     A FullGP acquisition is called on the consensus model as
@@ -388,6 +395,8 @@ def evaluate_acquisitions_fused(X, gpr, acq, n_samples: int = 10, random_state=N
     splits the candidate grid of an uncertainty acquisition over its
     entries for the predictions; the values equal the unsharded ones.
     """
+    if FUSED_ACQUISITION != "on":
+        return None
     X = np.atleast_2d(np.asarray(X, dtype=float))
     rs = _rng(random_state)
     out = np.zeros((1, X.shape[0]))

@@ -1128,7 +1128,12 @@ class BayesGPR:
         (a device-to-host copy per log-probability), or grams outside the
         fused kernels (a CPU device, float64, a bucket off the kernels'
         tile, a kernel outside ``Const * (Matern|RBF) [+ White]``; a
-        general-nu Matern syncs the host). The key holds the fused spec and
+        general-nu Matern syncs the host). Both factorization routes
+        capture (``linalg.FAST_CHOLESKY``: the blocked one with K3 bases, or
+        "off"'s ``cholesky_ex`` and triangular solve: cuSOLVER's
+        ``potrfBatched`` and cuBLAS's batched ``trsm`` on the card, which
+        capture with the default linalg backend); the graph cache keys on
+        the switch. The key holds the fused spec and
         the priors' identities; the entry's log-probability keeps them
         alive, so no identity is reused while it is cached."""
         data = self._data

@@ -103,8 +103,10 @@ def fused_marginal_grams(kernel, rows, data: GPData, n_real: Optional[int] = Non
 
 def posterior_and_invs(kernel, theta, data: GPData, Kp=None):
     """Like :func:`posterior`, also returning the factor's cached
-    diagonal-block inverses when the f32 blocked path applies (else
-    ``None``); ``Kp`` is an optional precomputed masked gram."""
+    diagonal-block inverses when the blocked path applies (float32 and a
+    qualifying size under ``linalg.FAST_CHOLESKY = "auto"``, any dtype
+    under "on", never under "off"), else ``None``; ``Kp`` is an optional
+    precomputed masked gram."""
     from ..ops.fast_cholesky import (
         block_cholesky,
         block_solve_lower_mat,

@@ -53,7 +53,7 @@ from __future__ import annotations
 
 import torch
 
-from .chol_base import chol_inv_base
+from .chol_base import chol_inv_base, chol_inv_plain
 
 __all__ = [
     "block_cholesky",
@@ -67,11 +67,15 @@ __all__ = [
 _BASE = 128  # K3's largest block: one launch per 128-wide panel
 
 
-def _chol_inv_recursive(A, base=chol_inv_base):
+def _chol_inv_recursive(A, base=None):
     """(L, L^-1) of (..., n, n), built together; ``base`` factors the
-    blocks of at most ``_BASE`` (K3, or its plain version)."""
+    blocks of at most ``_BASE``: by default K3 (its plain version on the
+    CPU) at float32, and K3's plain version at the dtypes K3 does not
+    take (``linalg.FAST_CHOLESKY = "on"`` sends float64 grams here)."""
     n = A.shape[-1]
     if n <= _BASE:
+        if base is None:
+            base = chol_inv_base if A.dtype == torch.float32 else chol_inv_plain
         return base(A)
     h = n // 2
     L11, inv11 = _chol_inv_recursive(A[..., :h, :h], base)

@@ -43,10 +43,25 @@ _LOG2PI = math.log(2.0 * math.pi)
 LML_MAX_BATCH_BYTES = 8_000_000_000
 
 
+# The factorization route of the masked LML and of
+# ``models.gp.posterior_and_invs``, as in the JAX package: "auto" takes the
+# blocked factorization (K3 bases and GEMMs) for float32 grams whose size
+# qualifies, "on" for every dtype whose size qualifies (K3 takes float32
+# only: other dtypes factor their bases by K3's plain version), "off" never
+# (``cholesky_ex``, cuSOLVER on the card, and triangular solves).
+FAST_CHOLESKY = "auto"
+
+
 def _use_fast_path(Kp) -> bool:
-    """Blocked factorization for float32 grams of a 64-multiple size >= 128."""
+    """The blocked factorization for a 64-multiple size >= 128: at float32
+    under "auto", at any dtype under "on", never under "off"."""
+    if FAST_CHOLESKY == "off":
+        return False
     n = Kp.shape[-1]
-    return n >= 128 and n % 64 == 0 and Kp.dtype == torch.float32
+    shape_ok = n >= 128 and n % 64 == 0
+    if FAST_CHOLESKY == "on":
+        return shape_ok
+    return shape_ok and Kp.dtype == torch.float32
 
 
 def masked_gram(kernel, theta, X, alpha_diag, mask):

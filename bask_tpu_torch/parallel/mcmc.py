@@ -355,14 +355,14 @@ _CAPTURE_STREAMS: dict = {}
 def _entry_key(graph: ChainGraph, W: int, D: int, dtype, device) -> tuple:
     """The cache key of a configuration: everything that changes the work
     a step's graph captured, besides the move (:func:`_branch_key`)."""
-    from ..ops import gram
+    from ..ops import gram, linalg
 
     n_pad_d = tuple(graph.inputs[0].shape[-2:])
     return (
         str(device), dtype, int(W), int(D),
         tuple((tuple(t.shape), t.dtype) for t in graph.inputs),
         graph.key,
-        gram.LOWER_GRAM, gram._K4_ROUTE.get(n_pad_d),
+        gram.LOWER_GRAM, gram._K4_ROUTE.get(n_pad_d), linalg.FAST_CHOLESKY,
         torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32,
     )
 

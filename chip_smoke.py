@@ -135,8 +135,28 @@ Phases, each printing one result line:
    one. Since this slice every chain of phases 6-11 and 13 on one card
    replays graphs (phase 10's host-adapter chains and general kernels,
    and phase 12's meshes, stay eager).
+14. the module switches: (a) ``linalg.FAST_CHOLESKY`` "auto" (the
+   blocked factorization, K3 bases) against "off" (``cholesky_ex`` and a
+   triangular solve: cuSOLVER and cuBLAS) inside the chain's CUDA graph
+   on phase 6's model (100 walkers, n_pad 512) and phase 8's (256
+   walkers, n_pad 1,024): ms per step graphed in turns (auto, off, off,
+   auto) and eager, the card's busy share, device operations and K3
+   launches per replay (none at "off"), the graphed "off" chain bit-equal
+   to the eager one, both routes' LMLs of the chain's positions against
+   float64 within phase 5's limit or, where cond(K) makes float32 miss
+   it, each route's largest error over the batch within twice the other
+   route's (phase 10's rule); (b) phase 6's warm tell at each route
+   in turns, and a PVRS tell with ``acquisition.FUSED_ACQUISITION`` "off"
+   (the legacy dispatcher) on a reloaded copy of the Optimizer, whose
+   next ask equals the fused tell's on another copy; (c) the example
+   scripts on the card, as child processes at their default sizes:
+   ``examples/torch_production_loop.py`` alone (its library from a fresh
+   cache this process fills), then ``torch_optimize_1d.py`` and
+   ``torch_fit_gp.py`` side by side; each exits 0, and the loop's printed
+   numbers (warmup seconds, median warm iteration, first fitted
+   iteration, best y) are reported.
 
-The ``launches`` of the kernel table sum phases 7-13, each counted from 0
+The ``launches`` of the kernel table sum phases 7-14, each counted from 0
 just before the phase drives its path and read just after it; a replayed
 step counts the launches its graph captured.
 
@@ -211,6 +231,16 @@ def bench_dataset():
     X = rng.uniform(size=(N_OBS, N_DIM))
     y = np.sum((X - 0.5) ** 2, axis=1) + 0.05 * rng.randn(N_OBS)
     return X, (y - y.mean()) / y.std()
+
+
+def _bowl(rng):
+    """The Optimizer phases' objective: a noisy bowl centred in the cube,
+    its noise drawn from ``rng``."""
+
+    def objective(x):
+        return float(np.sum((np.asarray(x) - 0.5) ** 2) + 0.05 * rng.randn())
+
+    return objective
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -735,10 +765,7 @@ def _drive_optimizer(dev, gp_kwargs=None, before_tell=None):
     from bask_tpu_torch import Optimizer
 
     X, _ = bench_dataset()
-
-    def objective(x, rng=np.random.RandomState(2)):
-        return float(np.sum((np.asarray(x) - 0.5) ** 2) + 0.05 * rng.randn())
-
+    objective = _bowl(np.random.RandomState(2))
     y = [objective(x) for x in X]
     opt = Optimizer(
         dimensions=[(0.0, 1.0)] * N_DIM, n_points=N_CAND, n_initial_points=N_OBS,
@@ -1262,7 +1289,7 @@ def phase_batch_ask(dev):
     256-point batch asks; the routed grams (K4) and K1 itself at the
     path's shapes, the factorization A/B, 4 draws against float64, and K5
     (the draws' values) against its plain version and timed alone.
-    Returns (launches, K1, K4, K3 and K5 extras)."""
+    Returns (launches, K1, K4, K3 and K5 extras, the fitted model)."""
     import torch
 
     from bask_tpu_torch import Optimizer
@@ -1422,7 +1449,7 @@ def phase_batch_ask(dev):
     k5_row = {key: k5[key] for key in row_keys}
     k5_row["at_batch_ask"] = {**{key: k5[key] for key in launch_keys},
                               "at_nu_half": {key: k5["at_nu_half"][key] for key in launch_keys}}
-    return launches, k1, k4, k3_ab, k5_row
+    return launches, k1, k4, k3_ab, k5_row, opt.gp
 
 
 def phase_stopping_polish(opt, dev):
@@ -2775,6 +2802,336 @@ def phase_tooling(opt, warped_opt, dev):
     return launches
 
 
+# -- phase 14: the factorization route in the chain's graph, the fused
+# acquisition switch, the example scripts on the card --
+
+ROUTES = ("auto", "off")  # linalg.FAST_CHOLESKY's values A/B'd in phase 14 (a)
+ROUTE_TURNS = ("auto", "off", "off", "auto")
+ROUTE_STEPS = 30  # steps of each graphed chain timed in phase 14 (a)
+ROUTE_RUNS = 2  # times the graphed turns run (the eager turns run once)
+ROUTE_EAGER_STEPS = 8  # steps of each eager chain timed in phase 14 (a)
+# phase 5's float32 LML limit: 1e-5 of max(1, |LML|) at float64
+LML_REL_TOL = 1e-5
+# the example scripts run as children in phase 14 (c), at their default sizes
+EXAMPLE_TIMEOUT_S = 600
+
+
+def _with_route(value, fn):
+    """``fn()`` with ``linalg.FAST_CHOLESKY`` at ``value``, put back after."""
+    from bask_tpu_torch.ops import linalg
+
+    old, linalg.FAST_CHOLESKY = linalg.FAST_CHOLESKY, value
+    try:
+        return fn()
+    finally:
+        linalg.FAST_CHOLESKY = old
+
+
+def _per_replay(parts):
+    """{kernel: launches per replay} of each move of this chain's graphs
+    under the current route (the counts each capture recorded)."""
+    from bask_tpu_torch.parallel import mcmc
+
+    _, graph, pos, _ = parts
+    entry = mcmc._GRAPH_CACHE[mcmc._entry_key(graph, *pos.shape, pos.dtype, pos.device)]
+    names = {id(f): k for k, f in _kernel_counters().items()}
+    return {move[0]: {names[id(f)]: n for f, n in zip(mcmc._launch_counters(), br.launches)}
+            for move, br in entry.branches.items()}
+
+
+def _route_lmls(gp):
+    """The batched LML of the chain's positions at each route in float32
+    on the card (the routed gram), at float64 on the card (the plain gram,
+    ``cholesky_ex``), and cond(K) in float64 at the walker where "off"
+    errs most."""
+    import torch
+
+    from bask_tpu_torch.ops import linalg
+
+    d, n_real = gp._data, len(gp._y_orig)
+    thetas = gp._tensor(gp.pos_)
+    out = {v: _with_route(v, lambda: linalg.batched_lml(
+        gp._spec, thetas, d.X, d.y, d.alpha_diag, d.mask, n_real=n_real)).double().cpu().numpy()
+        for v in ROUTES}
+    ref = linalg.batched_lml(gp._spec, thetas.double(), d.X.double(), d.y.double(),
+                             d.alpha_diag.double(), d.mask, n_real=n_real).cpu().numpy()
+    worst = int(np.argmax(np.abs(out["off"] - ref)))
+    K = linalg.masked_gram(gp._spec, thetas[worst].double(), d.X.double(),
+                           d.alpha_diag.double(), d.mask)[:n_real, :n_real]
+    ev = torch.linalg.eigvalsh(K)
+    return out, ref, float(ev[-1] / ev[0])
+
+
+def phase_route_ab(models):
+    """(a) ``linalg.FAST_CHOLESKY`` "auto" (the blocked factorization, K3
+    bases) against "off" (``cholesky_ex`` and a triangular solve: cuSOLVER
+    and cuBLAS) inside the chain's CUDA graph, for each model of
+    ``models`` (name -> fitted BayesGPR): ms per step graphed in turns
+    and eager, the card's busy share, device operations and K3 launches
+    per replay, the graphed "off" chain bit-equal to the eager one, and
+    both routes' LMLs of the chain's positions against float64. Returns
+    (report, launches of the graphed chains)."""
+    import torch
+
+    launches = {k: 0 for k in _kernel_counters()}
+    out = {}
+    for name, gp in models.items():
+        parts = _chain_parts(gp)
+        before = _counts()
+        for v in ROUTES:  # the allocator and handles, then each route's captures
+            _with_route(v, lambda: _uncounted(lambda: _run_chain(parts, False, 2)))
+            _with_route(v, lambda: _run_chain(parts, True, 2))
+        graphed = {v: [] for v in ROUTES}
+        eager = {v: [] for v in ROUTES}
+        for _ in range(ROUTE_RUNS):
+            for v in ROUTE_TURNS:
+                graphed[v].append(_with_route(v, lambda: _chain_ms(parts, True, ROUTE_STEPS)))
+        for v in ROUTE_TURNS:
+            eager[v].append(_with_route(v, lambda: _uncounted(
+                lambda: _chain_ms(parts, False, ROUTE_EAGER_STEPS))))
+        c_g, f_g = _with_route("off", lambda: _run_chain(parts, True, 12, seed=9))
+        c_e, f_e = _with_route("off", lambda: _uncounted(
+            lambda: _run_chain(parts, False, 12, seed=9)))
+        off_equal = bool(torch.equal(c_g, c_e) and torch.equal(f_g.log_prob, f_e.log_prob)
+                         and int(f_g.accepted) == int(f_e.accepted))
+        busy, replay, per_replay = {}, {}, {}
+        for v in ROUTES:
+            busy[v] = _with_route(v, lambda: _busy(parts, True))
+            replay[v] = _with_route(v, lambda: _replay_kernels(parts))
+            per_replay[v] = _with_route(v, lambda: _per_replay(parts))
+        for k, n in _since(before).items():
+            launches[k] += n
+        lmls, ref, cond = _uncounted(lambda: _route_lmls(gp))
+        err = {v: np.abs(lmls[v] - ref) for v in ROUTES}
+        # phase 5's limit at every walker; where cond(K) makes float32 miss
+        # it, the route's largest error over the batch within twice the
+        # other route's (phase 10's rule, the blocked route against the
+        # float32 cholesky_ex route, over the batch: per walker, either
+        # route's rounding can be the luckier one)
+        base = LML_REL_TOL * np.maximum(1.0, np.abs(ref))
+        within = {v: bool((e <= base).all() or e.max() <= 2.0 * err[w].max())
+                  for (v, e), w in zip(err.items(), ROUTES[::-1])}
+        med = {v: float(np.median(t)) for v, t in graphed.items()}
+        out[name] = {
+            "walkers_n_pad_d": [int(parts[2].shape[0]), int(gp._data.X.shape[0]),
+                                int(gp._data.X.shape[1])],
+            "path": "graphed" if parts[1] is not None else "eager (no graph for this model)",
+            "graphed_ms_per_step": {v: [med[v], t] for v, t in graphed.items()},
+            "eager_ms_per_step": {v: [float(np.median(t)), t] for v, t in eager.items()},
+            "off_over_auto_graphed": med["off"] / med["auto"],
+            "busy_share_graphed": {v: b[0] for v, b in busy.items()},
+            "device_ops_per_step_graphed": {v: b[1] for v, b in busy.items()},
+            "replay_device_ops": {v: r[0] for v, r in replay.items()},
+            "replay_kernels": {v: r[1] for v, r in replay.items()},
+            "launches_per_replay": per_replay,
+            "graphed_off_bit_equal_to_eager": off_equal,
+            "lml_max_abs_err": {v: float(e.max()) for v, e in err.items()},
+            "lml_within_limit": {v: bool(np.isfinite(lmls[v]).all()) and within[v]
+                                 for v in ROUTES},
+            "lml_within_phase5_limit": {v: int((e <= base).sum()) for v, e in err.items()},
+            "walkers": int(len(ref)), "lml_phase5_limit_min": float(base.min()),
+            "cond_k_at_worst_off_walker": cond,
+        }
+    return out, launches
+
+
+def phase_switch_tells(opt, dev):
+    """(b) phase 6's warm tell at "auto" against "off", in turns, then one
+    PVRS tell with ``acquisition.FUSED_ACQUISITION`` "off" on a copy of the
+    Optimizer (``save_optimizer``/``load_optimizer``) beside the same tell
+    fused on another copy: the legacy dispatcher runs and the next asks
+    are equal. Returns (report, launches of the tells)."""
+    import tempfile
+
+    import torch
+
+    from bask_tpu_torch import acquisition as acq_mod
+    from bask_tpu_torch.utils import serialization
+
+    objective = _bowl(np.random.RandomState(14))
+    before = _counts()
+    tells = {v: [] for v in ROUTES}
+    for v in ROUTE_TURNS:
+        x = opt.ask()
+        y = objective(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _with_route(v, lambda: opt.tell(x, y))
+        torch.cuda.synchronize()
+        tells[v].append(time.perf_counter() - t0)
+    launches = _since(before)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/opt.npz"
+        serialization.save_optimizer(opt, path)
+        fused, legacy = (serialization.load_optimizer(path, device=dev) for _ in range(2))
+    x = fused.ask()
+    same_start = list(x) == list(legacy.ask())
+    y = objective(x)
+    calls = []
+    real = acq_mod.evaluate_acquisitions
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    seconds = {}
+    for name, o in (("fused", fused), ("legacy", legacy)):
+        old = acq_mod.FUSED_ACQUISITION
+        acq_mod.FUSED_ACQUISITION = "on" if name == "fused" else "off"
+        acq_mod.evaluate_acquisitions = counted
+        try:
+            t0 = time.perf_counter()
+            _uncounted(lambda: o.tell(x, y))
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            if name == "fused":
+                fused_calls = len(calls)
+        finally:
+            acq_mod.FUSED_ACQUISITION = old
+            acq_mod.evaluate_acquisitions = real
+    report_ = {
+        "n": len(opt.yi), "warm_tell_s": {v: [float(np.median(t)), t] for v, t in tells.items()},
+        "fused_acquisition_off": {
+            "tell_s": seconds, "legacy_dispatcher_calls": {"fused": fused_calls,
+                                                           "off": len(calls) - fused_calls},
+            "same_start": same_start, "next_ask_equal": list(fused.ask()) == list(legacy.ask()),
+        },
+    }
+    return report_, launches
+
+
+_EXAMPLE_NUMBERS = {
+    "warmup_s": r"warmup \(buckets \[[0-9, ]*\]\): ([0-9.]+)s",
+    "total_s": r"[0-9]+ iterations: ([0-9.]+)s total",
+    "median_warm_iteration_s": r"median warm iteration ([0-9.]+)s",
+    "first_fitted_iteration_s": r"first fitted iteration ([0-9.]+)s",
+    "best_y": r"best y=(-?[0-9.]+)",
+}
+
+
+def _example(script, env):
+    """A child process running ``examples/<script>`` with no arguments (the
+    card, the default sizes)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen([sys.executable, os.path.join(root, "examples", script)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=env, cwd=root)
+
+
+def _finish(proc, t0):
+    """(exit status, stdout, stderr, wall seconds) of a child; one past its
+    time limit is killed."""
+    try:
+        out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def phase_examples():
+    """(c) ``examples/torch_production_loop.py`` in a child process, alone,
+    with a fresh library cache filled from this process's build (so it
+    loads the library, as every process after the first does), then
+    ``torch_optimize_1d.py`` and ``torch_fit_gp.py`` side by side; each
+    must exit 0 with its summary. Returns the report."""
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    from bask_tpu_torch import disable_aot_cache, enable_aot_cache
+
+    import torch
+
+    torch.cuda.empty_cache()  # the card's memory for the children
+    cache = tempfile.mkdtemp(prefix="bask_aot_")
+    try:
+        enable_aot_cache(cache)
+        disable_aot_cache()
+        env = dict(os.environ, BASK_TPU_AOT_CACHE=cache)
+        runs = {}
+        t0 = time.perf_counter()
+        runs["torch_production_loop.py"] = _finish(_example("torch_production_loop.py", env), t0)
+        t0 = time.perf_counter()
+        procs = {s: _example(s, env) for s in ("torch_optimize_1d.py", "torch_fit_gp.py")}
+        for s, proc in procs.items():
+            runs[s] = _finish(proc, t0)
+        cached = sorted(os.listdir(cache))
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    out = {}
+    for script, (rc, stdout, stderr, wall) in runs.items():
+        lines = stdout.splitlines()
+        out[script] = {"exit": rc, "wall_s": wall, "last_lines": lines[-3:]}
+        if rc != 0:
+            out[script]["stderr_tail"] = stderr[-1500:]
+    loop = runs["torch_production_loop.py"][1]
+    numbers = {}
+    for key, pattern in _EXAMPLE_NUMBERS.items():
+        m = re.search(pattern, loop)
+        numbers[key] = float(m.group(1)) if m else None
+    out["torch_production_loop.py"]["numbers"] = numbers
+    out["cache_files"] = cached
+    one_d = runs["torch_optimize_1d.py"][1]
+    out["torch_optimize_1d.py"]["best_observed"] = (re.findall(r"best observed: .*", one_d)
+                                                    or [None])[0]
+    out["torch_fit_gp.py"]["predictions"] = runs["torch_fit_gp.py"][1].count("pred=")
+    return out
+
+
+def phase_switches(opt, batch_gp, dev):
+    """Phase 14: (a) the factorization route's A/B inside the chain's
+    graph at phase 6's and phase 8's models; (b) warm tells at each route
+    and a tell with the fused acquisition off; (c) the example scripts on
+    the card. Returns the launch counts of (a) and (b)."""
+    import torch
+
+    models = {f"north-star ({N_WALKERS}, {N_PAD}, {N_DIM})": opt.gp,
+              f"batch ask ({BATCH_WALKERS}, {BATCH_PAD}, {N_DIM})": batch_gp}
+    backend = str(torch.backends.cuda.preferred_linalg_library())
+    ab, launches = phase_route_ab(models)
+    tells, tell_launches = phase_switch_tells(opt, dev)
+    for k, n in tell_launches.items():
+        launches[k] += n
+    examples = phase_examples()
+    report("phase 14 factorization routes in the chain's graph, fused acquisition off, "
+           "example scripts", linalg_backend=backend, route_ab=ab, tells=tells,
+           examples=examples, launches=launches)
+    checks = {}
+    for name, r in ab.items():
+        checks[f"{name}: both routes graphed"] = r["path"] == "graphed"
+        checks[f"{name}: no K3 in an 'off' replay"] = all(
+            c["K3"] == 0 for c in r["launches_per_replay"]["off"].values())
+        checks[f"{name}: K3 in every 'auto' replay"] = all(
+            c["K3"] > 0 for c in r["launches_per_replay"]["auto"].values())
+        checks[f"{name}: 'off' replays cuSOLVER's factorization"] = any(
+            "potrf" in k for k in r["replay_kernels"]["off"])
+        checks[f"{name}: graphed 'off' chain bit-equal to the eager one"] = r[
+            "graphed_off_bit_equal_to_eager"]
+        for v in ROUTES:
+            checks[f"{name}: '{v}' LMLs within the float64 limit"] = r["lml_within_limit"][v]
+    fa = tells["fused_acquisition_off"]
+    checks["FUSED_ACQUISITION off: the legacy dispatcher ran"] = (
+        fa["legacy_dispatcher_calls"]["fused"] == 0 and fa["legacy_dispatcher_calls"]["off"] > 0)
+    checks["FUSED_ACQUISITION off: the next ask equals the fused one"] = (
+        fa["same_start"] and fa["next_ask_equal"])
+    for script in ("torch_production_loop.py", "torch_optimize_1d.py", "torch_fit_gp.py"):
+        checks[f"{script} exits 0"] = examples[script]["exit"] == 0
+    checks["the production loop prints its numbers"] = all(
+        v is not None and math.isfinite(v)
+        for v in examples["torch_production_loop.py"]["numbers"].values())
+    checks["torch_fit_gp.py prints 11 predictions"] = examples["torch_fit_gp.py"][
+        "predictions"] == 11
+    checks["route A/B and tells launched K3"] = launches["K3"] > 0
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 14 failed: {failed}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2808,13 +3165,14 @@ def main() -> int:
     opt = timed("6", phase_optimizer, dev)
     by_path = {}
     by_path["phase 7 warped tell"], warped_opt = timed("7", phase_warped_optimizer, dev)
-    by_path["phase 8 batch ask"], k1_batch, k4_batch, k3_batch, k5 = timed(
+    by_path["phase 8 batch ask"], k1_batch, k4_batch, k3_batch, k5, batch_gp = timed(
         "8", phase_batch_ask, dev)
     by_path["phase 9 polish"] = timed("9", phase_stopping_polish, opt, dev)
     by_path["phase 10 fit options"] = timed("10", phase_fit_options, opt, dev)
     by_path["phase 11 bench_gram_wb"] = k4_path
     by_path["phase 12 meshes"], k3_rows = timed("12", phase_mesh, dev)
     by_path["phase 13 graphed chains"] = timed("13", phase_tooling, opt, warped_opt, dev)
+    by_path["phase 14 factorization routes"] = timed("14", phase_switches, opt, batch_gp, dev)
     report("phase seconds", **seconds, total=sum(seconds.values()))
 
     def launches(key):

@@ -6,8 +6,9 @@ with the same kernel and priors; another n inside the padding bucket)
 and miss when anything the captured step depends on changes: the device,
 the dtype, the walker count, the chain's dimension, the bucket, d, the
 fused spec, a prior's identity, the warp, ``gram.LOWER_GRAM``, the
-``gram._K4_ROUTE`` entry, the float32 matmul precision; a move is keyed
-with its parameters. The replays themselves are held bit-equal to the
+``gram._K4_ROUTE`` entry, the float32 matmul precision,
+``linalg.FAST_CHOLESKY`` (whose "off" route also runs through the graph
+path); a move is keyed with its parameters. The replays themselves are held bit-equal to the
 eager chain on the card (``tests/test_torch_cuda.py``)."""
 
 import numpy as np
@@ -18,7 +19,7 @@ torch.set_num_threads(1)
 
 from bask_tpu_torch import BayesGPR  # noqa: E402
 from bask_tpu_torch.models import bayesgpr as tbg  # noqa: E402
-from bask_tpu_torch.ops import gram  # noqa: E402
+from bask_tpu_torch.ops import gram, linalg  # noqa: E402
 from bask_tpu_torch.ops import kernels as bk  # noqa: E402
 from bask_tpu_torch.parallel import mcmc  # noqa: E402
 from bask_tpu_torch.parallel.mesh import Mesh  # noqa: E402
@@ -176,3 +177,33 @@ def test_graph_machinery_replays_the_eager_chain(fusable_on_cpu, monkeypatch, wa
     np.testing.assert_array_equal(chains["on"][0], chains["off"][0])
     assert chains["on"][1] == chains["off"][1]
     np.testing.assert_array_equal(chains["on"][2], chains["off"][2])
+
+
+def test_flipping_the_switch_captures_anew_and_replays_the_eager_off_chain(
+        fusable_on_cpu, monkeypatch):
+    """Through the graph machinery on the CPU (a stand-in capture): a chain
+    at "off" equals the eager "off" chain bit for bit, and flipping the
+    switch between two ``sample`` calls captures a second configuration."""
+    captured = []
+    monkeypatch.setattr(mcmc, "_capture_step", _stand_in_capture(captured))
+    monkeypatch.setattr(mcmc, "_GRAPH_CACHE", type(mcmc._GRAPH_CACHE)())
+    rng = np.random.RandomState(0)
+    X = rng.uniform(size=(100, 2))
+    y = np.sin(3 * X[:, 0])
+    kernel = _kernel(d=2)
+
+    def chain(graphs, value):
+        monkeypatch.setattr(linalg, "FAST_CHOLESKY", value)
+        monkeypatch.setattr(mcmc, "CHAIN_GRAPHS", graphs)
+        gp = BayesGPR(kernel, random_state=0, device="cpu", optimizer=None)
+        gp.fit(X, y, n_desired_samples=4 * 8, n_walkers_per_thread=8, n_burnin=0,
+               warn_rhat=None, progress=False)
+        return gp.chain_, gp.n_accepted_
+
+    eager = chain("off", "off")
+    graphed = chain("on", "off")
+    np.testing.assert_array_equal(graphed[0], eager[0])
+    assert graphed[1] == eager[1]
+    assert len(mcmc._GRAPH_CACHE) == 1
+    chain("on", "auto")
+    assert len(mcmc._GRAPH_CACHE) == 2 and len(captured) == 2

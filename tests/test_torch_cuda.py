@@ -25,7 +25,10 @@ blocks by cholesky_ex) against the dense float64 model; K1, K2 and K4
 with ``n_real`` as a device scalar bit-equal to the int, the chain
 replayed from CUDA graphs bit-equal to the eager chain (K4, K2 on warped
 X, K1, and bucket 64's cholesky_ex) with the same launch counts, and no
-graph captured after ``warmup_optimizer``; K5 (the pathwise draws'
+graph captured after ``warmup_optimizer``; the chain at
+``linalg.FAST_CHOLESKY = "off"`` (cuSOLVER) replayed bit-equal to its
+eager chain with no K3, a flip of the switch capturing anew, and "on" at
+float64 (K3's plain version as the bases) against "off"; K5 (the pathwise draws'
 values) against its float64 plain version for every nu, R 1, 3, 8 and
 11, n_pad 512 and 1,024, d 1, 15, 16, 17, 32 and 40 (the tensor-core
 kernel up to 31, PR 10's FP32 kernel past it), shared and per-row
@@ -890,9 +893,10 @@ def test_device_n_real_is_the_int_bit_for_bit(dev, kernel, n_real):
             fn(spec, thetas, X, alpha, torch.tensor([500], device=dev))
 
 
-def _chain_model(dev, warp, n, d, W, graphs, lower="off", steps=12):
+def _chain_model(dev, warp, n, d, W, graphs, lower="off", steps=12, route="auto"):
     """A fit (no warm start: theta0) of 6 x ``W`` samples with demix moves,
-    the chain graphed or eager; (chain, accepted, launches, captures)."""
+    the chain graphed or eager, ``linalg.FAST_CHOLESKY`` at ``route``;
+    (chain, accepted, launches, captures)."""
     from bask_tpu_torch import BayesGPR
     from bask_tpu_torch.parallel import mcmc
 
@@ -903,8 +907,9 @@ def _chain_model(dev, warp, n, d, W, graphs, lower="off", steps=12):
                 gram.fused_masked_gram_wb_batch, chol_base.chol_inv_base)
     before = [f.launches for f in counters]
     captures = mcmc.graph_stats["captures"]
-    old = (mcmc.CHAIN_GRAPHS, gram.LOWER_GRAM)
+    old = (mcmc.CHAIN_GRAPHS, gram.LOWER_GRAM, linalg.FAST_CHOLESKY)
     mcmc.CHAIN_GRAPHS, gram.LOWER_GRAM = ("on" if graphs else "off"), lower
+    linalg.FAST_CHOLESKY = route
     try:
         gp = BayesGPR(bk.ConstantKernel(1.0, (0.1, 2.0)) * bk.Matern((0.3,) * d, (0.05, 2.0)),
                       random_state=3, device=dev, warp_inputs=warp, optimizer=None,
@@ -912,7 +917,7 @@ def _chain_model(dev, warp, n, d, W, graphs, lower="off", steps=12):
         gp.fit(X, y, n_desired_samples=steps * W, n_walkers_per_thread=W, n_burnin=0,
                warn_rhat=None, progress=False)
     finally:
-        mcmc.CHAIN_GRAPHS, gram.LOWER_GRAM = old
+        mcmc.CHAIN_GRAPHS, gram.LOWER_GRAM, linalg.FAST_CHOLESKY = old
     torch.cuda.synchronize()
     return (gp.chain_, gp.n_accepted_, [f.launches - b for f, b in zip(counters, before)],
             mcmc.graph_stats["captures"] - captures)
@@ -957,6 +962,68 @@ def test_no_capture_after_warmup(dev):
                  gp_samples=20, gp_burnin=2)
     assert opt.gp.chain_ is not None
     assert mcmc.graph_stats["captures"] == captures
+
+
+@pytest.mark.parametrize("warp,n,d", [(False, 500, 15), (True, 120, 4)])
+def test_graphed_off_chain_is_the_eager_off_chain(dev, warp, n, d):
+    """``linalg.FAST_CHOLESKY = "off"`` (cuSOLVER's ``cholesky_ex`` and
+    cuBLAS's triangular solve) captures: the replayed chain equals the
+    eager one bit for bit, with the same launches (the gram kernel's; K3
+    none)."""
+    eager = _chain_model(dev, warp, n, d, 20, graphs=False, route="off")
+    graphed = _chain_model(dev, warp, n, d, 20, graphs=True, route="off")
+    assert np.array_equal(graphed[0], eager[0])
+    assert graphed[1] == eager[1] and graphed[2] == eager[2]
+    assert graphed[2][3] == 0 and sum(graphed[2][:3]) > 0  # no K3; K1 or K4
+
+
+def test_flipping_the_route_captures_a_second_graph(dev):
+    """Two sample calls of one configuration at "auto", then at "off": the
+    first "off" run captures its two moves anew (the graph cache keys on the
+    switch), the second captures nothing, and "auto" replays K3."""
+    auto = _chain_model(dev, False, 300, 5, 16, graphs=True, route="auto")
+    again = _chain_model(dev, False, 300, 5, 16, graphs=True, route="auto")
+    off = _chain_model(dev, False, 300, 5, 16, graphs=True, route="off")
+    off2 = _chain_model(dev, False, 300, 5, 16, graphs=True, route="off")
+    assert again[3] == 0 and off[3] == 2 and off2[3] == 0
+    assert auto[2][3] > 0 and off[2][3] == 0
+    assert np.array_equal(off[0], off2[0])
+
+
+def test_on_at_float64_on_the_card(dev):
+    """"on" at float64: the blocked route with K3's plain version as the
+    bases (K3 takes float32 only, and is not launched), no TypeError, and "off"'s
+    LML and predictions to the JAX tests' float64 tolerance (rtol 1e-8)."""
+    from bask_tpu_torch import convert
+    from bask_tpu_torch.models import gp as tgp
+
+    rng = np.random.RandomState(3)
+    n, n_pad, d = 450, 512, 15
+    X = np.full((n_pad, d), 0.5)
+    X[:n] = rng.uniform(size=(n, d))
+    y = np.zeros(n_pad)
+    y[:n] = rng.randn(n)
+    data = convert.gp_data(X, y, np.full(n_pad, 1e-6), np.arange(n_pad) < n, device=dev,
+                           dtype=torch.float64)
+    thetas = torch.tensor(KERNEL.theta0[None] + 0.3 * rng.randn(4, KERNEL.n_theta),
+                          dtype=torch.float64, device=dev)
+    Xq = torch.tensor(rng.uniform(size=(64, d)), dtype=torch.float64, device=dev)
+    out, k3 = {}, chol_base.chol_inv_base.launches
+    old = linalg.FAST_CHOLESKY
+    try:
+        for route in ("off", "on"):
+            linalg.FAST_CHOLESKY = route
+            lml = linalg.masked_lml(KERNEL, thetas, data.X, data.y, data.alpha_diag, data.mask)
+            post, invs = tgp.posterior_and_invs(KERNEL, thetas[0], data)
+            assert (invs is None) == (route == "off")
+            out[route] = (lml, *tgp.predict(KERNEL, thetas[0], post, data, Xq,
+                                            return_std=True, invs=invs))
+    finally:
+        linalg.FAST_CHOLESKY = old
+    assert chol_base.chol_inv_base.launches == k3
+    assert torch.isfinite(out["on"][0]).all()
+    for a, b in zip(out["on"], out["off"]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-8, atol=1e-12)
 
 
 # K5 (the pathwise draws' values, csrc/pathwise.cu). A draw's float32 error
