@@ -30,9 +30,10 @@ tensor, so no (draws, m, M) or (draws, m, n_pad) tensor is made; the
 plain version of the same function runs on the CPU and in float64. The
 JAX ``lax.scan`` over draws becomes chunks of draws, each holding at
 most :data:`CHUNK_BYTES` in its largest tensors (the draws, and with
-warping the warp's temporaries; :func:`draws_per_chunk`), which at the
-unwarped batch ask is one chunk of all draws; each draw's values and
-top-k are those the per-draw loop gives.
+warping the warped queries on K6 or the plain warp's temporaries;
+:func:`draws_per_chunk`), which at the batch ask, warped or not, is one
+chunk of all draws on the card; each draw's values and top-k are those
+the per-draw loop gives.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from ..ops.fast_cholesky import block_cholesky, block_solve_lower_mat, block_sol
 from ..ops.gram import FusedSpec, fused_masked_gram_batch
 from ..ops.linalg import masked_gram
 from ..ops.pathwise_values import pathwise_values, pathwise_values_plain
+from ..ops.warp_values import CF_TERMS
 
 __all__ = [
     "PathwiseRandoms",
@@ -60,10 +62,12 @@ __all__ = [
 ]
 
 # the largest per-draw tensors of one chunk of draws, summed over its
-# draws: the draws (m) and, with warping, the warp's continued-fraction
-# coefficients of the queries (warping._CF_TERMS = 48 of (m, d)). At
-# m = 65,536 and d = 15 in float32, 1 GiB holds 4,096 unwarped draws (the
-# 256-draw batch ask is one chunk) or 5 warped ones
+# draws: the draws (m) and, with warping, the warped queries (m, d) where
+# the warp runs on K6 (a CUDA tensor), or the plain warp's continued-
+# fraction coefficients of the queries (warp_values.CF_TERMS = 48 of (m, d))
+# where it runs op by op (a CPU tensor). At m = 65,536 and d = 15 in
+# float32, 1 GiB holds 4,096 unwarped draws (the 256-draw batch ask is one
+# chunk), 256 warped ones on K6 (one chunk again) or 5 on the plain warp
 CHUNK_BYTES = 1 << 30
 
 
@@ -210,7 +214,7 @@ def pathwise_topk_hyper(
     Each of the S draws uses its own chain row (kernel theta, then the
     2 ``n_warp`` warp parameters when warping): one batched gram and one
     blocked factorization for all rows, then chunks of draws
-    (:func:`draws_per_chunk`; one at the unwarped batch ask) whose values come
+    (:func:`draws_per_chunk`; one at the batch ask on the card) whose values come
     from two K5 launches each (f0 at the training points, then the
     draws) and reduce to top-k indices. ``rows`` is (S, n_theta + 2 n_warp),
     ``rand`` batched over S with one draw each (w (S, M, 1), e
@@ -232,7 +236,8 @@ def pathwise_topk_hyper(
         Xb = data.X
     L, invs = block_cholesky(_row_grams(spec, thetas, Xb, data, n_real))
 
-    chunk = draws_per_chunk(S, m, Xq.shape[-1], n_warp, Xq.element_size())
+    chunk = draws_per_chunk(S, m, Xq.shape[-1], n_warp, Xq.element_size(),
+                            warp_on_kernels=Xq.is_cuda)
     keep = [] if keep is None else [int(i) for i in keep]
     idx, kept = [], {}
     for lo in range(0, S, chunk):
@@ -256,12 +261,15 @@ def pathwise_topk_hyper(
     return idx
 
 
-def draws_per_chunk(S: int, m: int, d: int, n_warp: int, itemsize: int) -> int:
+def draws_per_chunk(S: int, m: int, d: int, n_warp: int, itemsize: int,
+                    warp_on_kernels: bool = False) -> int:
     """Draws per chunk of :func:`pathwise_topk_hyper`: as many as keep its
-    largest per-draw tensors, the draws (m) and with warping the warp's
-    (``_CF_TERMS``, m, d) coefficients, within :data:`CHUNK_BYTES`; at
-    least 1, at most S. Each chunk launches K5 twice on the card."""
-    from .warping import _CF_TERMS
-
-    per_draw = m * (1 + (_CF_TERMS * d if n_warp else 0)) * itemsize
-    return max(1, min(S, CHUNK_BYTES // per_draw))
+    largest per-draw tensors within :data:`CHUNK_BYTES`, at least 1, at
+    most S. Per draw: the draws (m) and, with warping, the warped queries
+    (m, d) on K6's route (``warp_on_kernels``, a CUDA tensor), or the plain
+    warp's (``CF_TERMS``, m, d) coefficients (a CPU tensor). Each chunk
+    launches K5 twice on the card."""
+    per_point = 1
+    if n_warp:
+        per_point += d if warp_on_kernels else CF_TERMS * d
+    return max(1, min(S, CHUNK_BYTES // (m * per_point * itemsize)))

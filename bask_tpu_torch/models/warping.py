@@ -1,4 +1,4 @@
-"""Beta-CDF input warping (Snoek et al. 2014) in plain PyTorch.
+"""Beta-CDF input warping (Snoek et al. 2014) in PyTorch.
 
 PyTorch counterpart of :mod:`bask_tpu.models.warping`: each input
 dimension is warped by the CDF of a Beta(a_d, b_d) distribution whose
@@ -7,27 +7,40 @@ leading dimensions, so one call warps the training inputs of a whole
 walker batch: log-parameters (W, d) and X (n, d) give (W, n, d), the
 per-walker layout the gram kernels take.
 
-torch has no incomplete beta function, so :func:`betainc` evaluates the
-classic continued fraction (Numerical Recipes 6.4) with the
+The route is :mod:`bask_tpu_torch.ops.warp_values`'s: :func:`warp` and
+:func:`unwarp` call its wrappers, which send a CUDA tensor, float32 or
+float64, to the hand-written kernels K6 and K7 (``csrc/warp.cu``: one
+launch per call, no coefficient tensor) and a CPU tensor to their plain
+versions beside them. A build or launch failure raises; nothing falls
+back. On the card the warp's gradient in x is the incoming gradient
+times the Beta pdf that K6 writes beside the warp, and a gradient in the
+log-parameters raises (JAX's ``betainc`` has none either).
+
+torch has no incomplete beta function, so the plain :func:`betainc`
+evaluates the classic continued fraction (Numerical Recipes 6.4) with the
 ``x > (a + 1) / (a + b + 2)`` symmetry switch, ``torch.lgamma`` for the
-prefactor, and a **fixed** depth of ``_CF_TERMS`` terms summed backward
-from the tail: one launch per term and no data-dependent loop, so the
-host never waits on the device. At 48 terms it agrees with
-``scipy.special.betainc`` within 2e-15 for a, b in [0.2, 5], 5e-14 in
-[0.05, 20] and 2e-11 in [0.01, 100] (float64, the bounds
-``tests/test_torch_warping.py`` holds; the default warp prior puts a and
-b in [0.2, 5] at 5 sigma).
+prefactor, and a **fixed** depth of 48 terms (``CF_TERMS``) summed
+backward from the tail: one launch per term over a ``(48, *x.shape)``
+coefficient tensor and no data-dependent loop, so the host never waits on
+the device. K6 evaluates the same terms in the same order per entry. At
+48 terms it agrees with ``scipy.special.betainc`` within 2e-15 for a, b
+in [0.2, 5], 5e-14 in [0.05, 20] and 2e-11 in [0.01, 100] (float64, the
+bounds ``tests/test_torch_warping.py`` holds; the default warp prior puts
+a and b in [0.2, 5] at 5 sigma).
 
 The inverse CDF (``unwarp``) has no closed form. JAX bisects 60 times;
 here a 64-way search narrows the bracket by 64 per round (63 Beta CDFs
 at once), so 10 rounds give the same 2^-60 bracket with a sixth of the
-sequential steps (launches, on the card).
+sequential steps (launches of the plain version; K7 runs one warp per
+entry, its lanes voting on the 63 probes).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops import warp_values as _k
+from ..ops.warp_values import _betaln, ab as _ab, betainc
 from ..utils.stats import norm_logpdf
 
 __all__ = [
@@ -39,54 +52,13 @@ __all__ = [
     "split_warp_params",
 ]
 
-_CF_TERMS = 48
-_WAYS = 64  # a round of the unwarp's search resolves 6 bits
-
-
-def _betaln(a, b):
-    return torch.lgamma(a) + torch.lgamma(b) - torch.lgamma(a + b)
-
-
-def betainc(a, b, x):
-    """Regularized incomplete beta function I_x(a, b), elementwise over
-    the broadcast shape of ``a``, ``b`` and ``x`` (x in [0, 1])."""
-    flip = x > (a + 1.0) / (a + b + 2.0)
-    aa = torch.where(flip, b, a)
-    bb = torch.where(flip, a, b)
-    xx = torch.where(flip, 1.0 - x, x)
-    log_front = (
-        aa * torch.log(xx) + bb * torch.log1p(-xx) - _betaln(aa, bb) - torch.log(aa)
-    )
-    # coefficients d_k, k = 1.._CF_TERMS, term index leading so that each
-    # step of the backward sum reads a contiguous slice:
-    #   d_{2m+1} = -(a+m)(a+b+m) x / ((a+2m)(a+2m+1))
-    #   d_{2m}   =  m(b-m) x / ((a+2m-1)(a+2m))
-    k = torch.arange(1, _CF_TERMS + 1, dtype=xx.dtype, device=xx.device)
-    k = k.view((-1,) + (1,) * xx.ndim)
-    m = torch.floor(k / 2.0)
-    num = torch.where(
-        torch.remainder(k, 2.0) == 1.0, -(aa + m) * (aa + bb + m), m * (bb - m)
-    )
-    d = num * xx / ((aa + k - 1.0) * (aa + k))
-    # 1 / (1 + d_1 / (1 + d_2 / (1 + ...))), summed from the tail
-    one = torch.ones((), dtype=xx.dtype, device=xx.device)
-    u = torch.ones_like(xx)
-    for i in range(_CF_TERMS - 1, -1, -1):
-        u = torch.addcdiv(one, d[i], u)
-    front = torch.exp(log_front) / u
-    return torch.where(flip, 1.0 - front, front)
-
-
-def _ab(log_alphas, log_betas):
-    """(a, b) with a row axis inserted before the last: (..., 1, d)."""
-    return torch.exp(log_alphas).unsqueeze(-2), torch.exp(log_betas).unsqueeze(-2)
-
 
 def warp(X, log_alphas, log_betas):
     """Columnwise Beta CDF warp of X in [0, 1]^d: X (..., n, d) and
-    log-parameters (..., d) broadcast to (..., n, d)."""
-    a, b = _ab(log_alphas, log_betas)
-    return betainc(a, b, torch.clamp(X, 0.0, 1.0))
+    log-parameters (..., d) broadcast to (..., n, d). K6 on a CUDA tensor,
+    the plain version on a CPU tensor (:func:`~bask_tpu_torch.ops.
+    warp_values.warp_values`)."""
+    return _k.warp_values(X, log_alphas, log_betas)
 
 
 def warp_grad(X, log_alphas, log_betas):
@@ -103,18 +75,10 @@ def unwarp(Z, log_alphas, log_betas, n_iter: int = 60):
     the midpoint of its bracket. ``n_iter`` is the JAX package's count of
     bisection steps: a 64-way search runs ``ceil(n_iter / 6)`` rounds of
     6 bits each (10 by default, a 2^-60 bracket), so the bracket is at
-    most as wide as ``n_iter`` bisections leave it."""
-    a, b = _ab(log_alphas, log_betas)
-    Z = torch.clamp(Z, 0.0, 1.0)
-    steps = torch.arange(1, _WAYS, dtype=Z.dtype, device=Z.device) / _WAYS
-    steps = steps.view((-1,) + (1,) * Z.ndim)
-    lo = torch.zeros_like(Z)
-    width = 1.0
-    for _ in range(-(-int(n_iter) // 6)):
-        below = (betainc(a, b, lo + width * steps) < Z).sum(0)
-        lo = lo + below.to(Z.dtype) * (width / _WAYS)
-        width /= _WAYS
-    return lo + 0.5 * width
+    most as wide as ``n_iter`` bisections leave it. K7 on a CUDA tensor,
+    the plain version on a CPU tensor (:func:`~bask_tpu_torch.ops.
+    warp_values.unwarp_values`)."""
+    return _k.unwarp_values(Z, log_alphas, log_betas, n_iter)
 
 
 def default_warp_log_prior(log_alphas, log_betas, scale: float = 0.3):

@@ -12,8 +12,8 @@ torch's version and CUDA version and the card's compute capability
 builds anew, and a build for the same ones is reused. No ``--use_fast_math``: a
 kernel takes an approximate operation only where it says so (the Matern
 root of K1, K2, K4 and K5, K3's pivot rsqrt, the cosine of K5's
-tensor-core kernel on an exactly reduced argument); ``expf`` stays exact,
-as the tests' bounds assume.
+tensor-core kernel on an exactly reduced argument; K6 and K7 take none);
+``expf`` stays exact, as the tests' bounds assume.
 
 Each C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; :func:`check` raises when
@@ -66,6 +66,14 @@ _SIGNATURES = {
                                  _I, _I, _I, _I, _I, _I, _I, _P],
     # d, r, nu_code, info[4]: K5's launch plan
     "bask_pathwise_values_info": [_I, _I, _I, _P],
+    # X, x_batch_stride, log_alphas, la_stride, log_betas, lb_stride, out,
+    # pdf (or null), B, n, d, stream: K6
+    "bask_warp_f32": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _I, _LL, _I, _P],
+    "bask_warp_f64": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _I, _LL, _I, _P],
+    # Z, z_batch_stride, log_alphas, la_stride, log_betas, lb_stride, out,
+    # B, n, d, rounds, stream: K7
+    "bask_unwarp_f32": [_P, _LL, _P, _LL, _P, _LL, _P, _I, _LL, _I, _I, _P],
+    "bask_unwarp_f64": [_P, _LL, _P, _LL, _P, _LL, _P, _I, _LL, _I, _I, _P],
 }
 
 # filled by library(): seconds to build or load, whether nvcc built it, the

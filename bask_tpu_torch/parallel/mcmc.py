@@ -374,10 +374,11 @@ def _branch_key(name: str, a: float) -> tuple:
 
 def _launch_counters():
     """The kernel wrappers' launch counts, which a replay adds to."""
-    from ..ops import chol_base, gram
+    from ..ops import chol_base, gram, warp_values
 
     return (gram.fused_masked_gram_batch, gram.fused_masked_gram_lower_batch,
-            gram.fused_masked_gram_wb_batch, chol_base.chol_inv_base)
+            gram.fused_masked_gram_wb_batch, chol_base.chol_inv_base,
+            warp_values.warp_values)
 
 
 class _Branch(NamedTuple):

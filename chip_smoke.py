@@ -34,10 +34,10 @@ Phases, each printing one result line:
    ask/tell rounds with PVRS, one marginalized EI pass over a 500-point
    grid; the kernels' launch counts over this phase;
 7. the same Optimizer with input warping and ``LOWER_GRAM = "on"``: the
-   chain's grams come from K2 on per-walker warped X; a cold tell, three
-   warm PVRS tells, then one pass of each of the eight acquisitions over
-   a 500-point grid; the launch counts of K1, K2 and K3 over this phase,
-   which are the ``launches`` of the kernel table;
+   chain's grams come from K2 on per-walker X warped by K6, the candidate
+   grids from K7; a cold tell, three warm PVRS tells, then one pass of
+   each of the eight acquisitions over a 500-point grid; the launch counts
+   of K1, K2, K3, K6 and K7 over this phase;
 8. the batch ask at the shape of ``benchmarks/bench_batch_ask.py``
    (n = 1,000 in 15-D padded to 1,024, 256 walkers, normalized y): a cold
    tell with an EI pass over 65,536 candidates (its (128 | 256, 1024,
@@ -155,8 +155,32 @@ Phases, each printing one result line:
    ``torch_fit_gp.py`` side by side; each exits 0, and the loop's printed
    numbers (warmup seconds, median warm iteration, first fitted
    iteration, best y) are reported.
+15. the input warp on its kernels (``csrc/warp.cu``): (a) K6 (the Beta-CDF
+   warp) at the chain's half-batch (50, 512, 15) from shared X, the
+   draws' training X (256, 1,024, 15), a ragged per-row (64, 999, 7) and
+   the batch ask's queries (256, 65,536, 15); K7 (the Beta PPF) at
+   (500, 15) and (65,536, 15); each at float32 and float64 with log-
+   parameters over the warp prior's 5-sigma range and x at and past the
+   ends, against the float64 plain version (``WARP_TOL``, ``PDF_RTOL``,
+   ``UNWARP_TOL``), controls that must miss the limits (a short continued
+   fraction; for K7 also the plain unwarp stopped early), one device
+   operation per call, the time alone and through the
+   wrapper beside the plain version's and the bound, nvcc's registers
+   and spills; (b) phase 8's batch ask with ``warp_inputs=True``: the
+   cold tell (11 steps, EI over 65,536 warp-density candidates) and two
+   ``ask(n_points=256)``, K7 for each grid, K6 for the chain's
+   per-walker X and the draws' training X and queries, K1 for the
+   per-walker grams, K3, K5 exactly twice an ask in one chunk; 4 draws
+   against float64; the asks', the cold tell's and the grid's seconds, a
+   profiled ask's device operations and busy share, peak memory; (c) the
+   warped numbers with K6 and K7 in place are phase 7's warm tells and
+   phase 13 (a)'s warped chain, graphed and eager, with the device
+   operations of a replay, in those phases' report lines. Phases 7 and 13
+   check that K6 and K7 launched (phase 13 adds one warm tell of the
+   warped model, (h), and checks that the warped replay runs K6). (a)
+   runs after phase 11, with the other kernel phases; (b) last.
 
-The ``launches`` of the kernel table sum phases 7-14, each counted from 0
+The ``launches`` of the kernel table sum phases 7-15, each counted from 0
 just before the phase drives its path and read just after it; a replayed
 step counts the launches its graph captured.
 
@@ -243,10 +267,10 @@ def _bowl(rng):
     return objective
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, flops: float = F32_FLOPS):
     """(the least time for the work, what bounds it): bytes moved over the
-    HBM rate against float32 operations over the peak rate."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS
+    HBM rate against operations over the peak rate (float32's by default)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / flops
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -734,7 +758,7 @@ def phase_lml(dev):
 
 
 def _kernel_counters():
-    from bask_tpu_torch.ops import chol_base, gram, pathwise_values
+    from bask_tpu_torch.ops import chol_base, gram, pathwise_values, warp_values
 
     return {
         "K1": gram.fused_masked_gram_batch,
@@ -742,6 +766,8 @@ def _kernel_counters():
         "K3": chol_base.chol_inv_base,
         "K4": gram.fused_masked_gram_wb_batch,
         "K5": pathwise_values.pathwise_values,
+        "K6": warp_values.warp_values,
+        "K7": warp_values.unwarp_values,
     }
 
 
@@ -876,8 +902,9 @@ def phase_optimizer(dev):
 def phase_warped_optimizer(dev):
     """This slice's main path: the Optimizer with input warping and
     LOWER_GRAM on, so the chain's grams come from K2 on per-walker warped
-    X; then one pass of each of the eight acquisitions. Returns the
-    launch counts of the phase."""
+    X (warped by K6), its candidate grids unwarped by K7; then one pass of
+    each of the eight acquisitions. Returns the launch counts of the
+    phase, the Optimizer and the warm tells' seconds."""
     import torch
 
     from bask_tpu_torch.acquisition import evaluate_acquisitions_fused
@@ -920,6 +947,8 @@ def phase_warped_optimizer(dev):
         "K1 launched": launches["K1"] > 0,
         "K2 launched": launches["K2"] > 0,
         "K3 launched": launches["K3"] > 0,
+        "K6 launched": launches["K6"] > 0,
+        "K7 launched": launches["K7"] > 0,
         "consensus LML finite": math.isfinite(lml),
         "consensus LML matches f64": abs(lml - lml64) <= 1e-5 * max(1.0, abs(lml64)),
         "chain carries 2d warp dims": gp.chain_.shape[1] == gp._spec.n_theta + 2 * N_DIM,
@@ -929,7 +958,7 @@ def phase_warped_optimizer(dev):
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"warped optimizer phase failed: {failed}")
-    return launches, opt
+    return launches, opt, warm_s
 
 
 def _counts():
@@ -2676,8 +2705,10 @@ def phase_tooling(opt, warped_opt, dev):
     from the cache this process filled by ``enable_aot_cache`` (after its
     phase 1 build), running no nvcc; (g) the chain with an opaque prior
     tabulated on the device (``host_prior_mode="interp"``), graphed, beside
-    the same chain eager and the lifted prior's. Returns the graphed
-    chains' launch counts (replays times launches per capture)."""
+    the same chain eager and the lifted prior's; (h) one warm tell of the
+    warped model (its chain replayed, K6 in each replay, its candidate grid
+    on K7). Returns the graphed chains' launch counts (replays times
+    launches per capture) and the chains' numbers."""
     import shutil
     import tempfile
     import warnings
@@ -2762,6 +2793,22 @@ def phase_tooling(opt, warped_opt, dev):
     }
     for k, v in _since(before).items():
         launches[k] += v
+    # (h) one warm tell of phase 7's warped model with LOWER_GRAM on: its
+    # chain replayed from the graph (K2, K3 and K6 in each replay), its
+    # candidate grid unwarped by K7
+    gram.LOWER_GRAM = "on"
+    try:
+        objective = _bowl(np.random.RandomState(6))
+        before = _counts()
+        x = warped_opt.ask()
+        t0 = time.perf_counter()
+        warped_opt.tell(x, objective(x))
+        torch.cuda.synchronize()
+        warped_tell_s = time.perf_counter() - t0
+        for k, v in _since(before).items():
+            launches[k] += v
+    finally:
+        gram.LOWER_GRAM = "off"
     # the tabulated log posterior against the exact one (host adapter) at
     # the model's walkers: within the tables' summed midpoint errors (twice)
     # and the float32 rounding of the sums (8 spacings of the largest value)
@@ -2775,7 +2822,8 @@ def phase_tooling(opt, warped_opt, dev):
                  "cache load in a second process": {
                      "built": warm_child["library_built"], "seconds": warm_child["library_load_s"],
                      "nvcc_runs": warm_child["nvcc_runs"]}},
-        tabulated_prior=tabulated, launches=launches, graph_stats=dict(mcmc.graph_stats),
+        tabulated_prior=tabulated, warped_warm_tell_s=warped_tell_s, launches=launches,
+        graph_stats=dict(mcmc.graph_stats),
     )
     checks = {
         "both chains graphed": all(c["path"] == "graphed" for c in chains.values()),
@@ -2795,11 +2843,15 @@ def phase_tooling(opt, warped_opt, dev):
         "tabulated log-prob near the exact one": tabulated["max_abs_logprob_diff_vs_host"]
         <= tabulated["limit"],
         "K4 and K3 replayed": launches["K4"] > 0 and launches["K3"] > 0 and launches["K2"] > 0,
+        "warped replay runs K6": any("::warp_kernel" in n for n in
+                                     chains["warped, LOWER_GRAM on"]["replay_kernels"]),
+        "K6 launched": launches["K6"] > 0,
+        "K7 launched": launches["K7"] > 0,
     }
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"phase 13 failed: {failed}")
-    return launches
+    return launches, chains
 
 
 # -- phase 14: the factorization route in the chain's graph, the fused
@@ -3132,6 +3184,414 @@ def phase_switches(opt, batch_gp, dev):
     return launches
 
 
+# -- phase 15: the input warp on K6 and K7 (csrc/warp.cu); the warped
+# batch ask at full width --
+
+# K6 and K7 against their plain versions in float64 on the same inputs,
+# by type: the largest |difference| of the warp (values in [0, 1]) and
+# the relative difference of the pdf K6 writes for the backward; the
+# unwarp's x (in [0, 1]) within UNWARP_TOL of the float64 root, or its
+# float64 CDF within WARP_TOL of z (where the pdf is near 0, as at z = 1
+# with b > 1, a float32 CDF reaches 1 a visible distance before x does,
+# and x is only as exact as the CDF; where the pdf is large, x is as exact
+# as its type); set from readings on an H100 (PERF.md).
+# tests/test_torch_cuda.py holds the same.
+WARP_TOL = {"float32": 3e-6, "float64": 5e-15}
+PDF_RTOL = {"float32": 5e-5, "float64": 1e-13}
+UNWARP_TOL = {"float32": 1e-6, "float64": 2e-15}
+# the controls that must miss WARP_TOL: the plain continued fraction cut to
+# this many terms (12 terms are ~2e-7 off in the prior's 5-sigma range, far
+# outside the float64 limit but inside float32's own rounding, so the
+# float32 limit is held against 6 terms, ~8e-5 off); K7's limit is held
+# against the plain unwarp with these CDFs in its probes, and against the
+# plain unwarp stopped at CONTROL_ROUNDS rounds, whose last bracket (2^-18,
+# 2^-42) is wider than UNWARP_TOL
+CONTROL_TERMS = {"float32": 6, "float64": 12}
+CONTROL_ROUNDS = {"float32": 3, "float64": 7}
+# the published peaks of one H100 SXM outside the tensor cores by type
+# (NVIDIA's datasheet), for K6's and K7's bounds
+FLOPS = {"float32": F32_FLOPS, "float64": 34e12}
+
+
+def _warp_case(dev, dtype, shape, rows, seed):
+    """X (or Z) of ``shape`` uniform in [0, 1] (on the bench or batch data
+    where ``shape`` is theirs), its first entries at 0, 1e-12, 1 - 1e-12
+    and 1 and two past the ends, and log-parameters of ``rows`` rows
+    (``()``: one pair per column) uniform over the warp prior's 5-sigma
+    range [-1.5, 1.5]."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    X = rng.uniform(size=shape)
+    if shape[-2:] == (N_PAD, N_DIM):
+        X = padded(bench_dataset()[0])
+    elif shape[-2:] == (BATCH_PAD, N_DIM):
+        X = np.full(shape, 0.5)
+        X[:BATCH_OBS] = batch_dataset()[0]
+    X.reshape(-1)[:6] = [0.0, 1e-12, 1.0 - 1e-12, 1.0, -0.25, 1.25]
+    la, lb = (rng.uniform(-1.5, 1.5, rows + (shape[-1],)) for _ in range(2))
+    return [torch.tensor(a, dtype=getattr(torch, dtype), device=dev) for a in (X, la, lb)]
+
+
+def _once_ms(fn):
+    """Milliseconds of one ``fn()`` by CUDA events, no warm-up run (for
+    the plain versions at the ask's sizes, seconds each)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _ops_and_alone(fn, key, reps=3, tries=3):
+    """(device operations per ``fn()``, the names of any that are not the
+    kernel ``key``, median device microseconds of the kernel) from one
+    profiler session of ``reps`` calls, repeated where the session
+    recorded fewer than ``reps`` kernels (a session on the card can come
+    back empty or, rarely, short of an event); ``(0, [], None)`` if every
+    try recorded nothing."""
+    n, ops = 0, []
+    for _ in range(tries):
+        n, ops = profiled(fn, reps=reps)
+        if sum(key in e.name for e in ops) >= reps:
+            break
+    foreign = sorted({e.name for e in ops if key not in e.name})
+    return n, foreign, kernel_us(ops, key)
+
+
+def k6_check_and_time(dev, dtype, shape, rows, seed, check_rows=None, plain_rows=None):
+    """K6 on seeded inputs: against its plain version in float64 (on
+    ``check_rows`` of the output, all by default) with the pdf beside it,
+    the short continued fraction that must miss the limit, one device
+    operation per call (no other operation, at most one a call), the time alone (profiler) and through the wrapper
+    (CUDA events), the plain version's time in its own type (in chunks of
+    ``plain_rows`` rows where given; None: not timed) and the bound;
+    launches uncounted."""
+    import torch
+
+    from bask_tpu_torch.ops import warp_values as wv
+
+    X, la, lb = _warp_case(dev, dtype, shape, rows, seed)
+
+    def launch():
+        return wv.warp_values(X, la, lb)
+
+    def check():
+        out, pdf = wv.warp_values(X, la, lb, with_pdf=True)
+        xs, las, lbs = X, la, lb
+        if check_rows is not None:  # rows of a (B, ...) output
+            out, pdf, las, lbs = out[check_rows], pdf[check_rows], la[check_rows], lb[check_rows]
+            xs = X if X.ndim == 2 else X[check_rows]
+        x64, la64, lb64 = xs.double(), las.double(), lbs.double()
+        ref = wv.warp_plain(x64, la64, lb64)
+        err = float((out.double() - ref).abs().max())
+        pdf_ref = wv.beta_pdf_plain(x64, la64, lb64)
+        ok = torch.isfinite(pdf_ref) & (pdf_ref > 1e-30)
+        pdf_err = float(((pdf.double() - pdf_ref) / pdf_ref)[ok].abs().max())
+        a, b = wv.ab(la64, lb64)
+        control = wv.betainc(a, b, x64.clamp(0.0, 1.0), CONTROL_TERMS[dtype])
+        control_err = float((control - ref).abs().max())
+        return err, pdf_err, control_err, bool(torch.isfinite(out).all())
+
+    err, pdf_err, control_err, finite = _uncounted(check)
+    ops_per_call, foreign, alone = _uncounted(lambda: _ops_and_alone(launch, "::warp_kernel"))
+    ms = _uncounted(lambda: cuda_ms(launch, reps=5))
+    out_shape = torch.broadcast_shapes(X.shape, la.shape[:-1] + (1, X.shape[-1]))
+    entries = math.prod(out_shape)
+    plain_ms = None
+    if plain_rows is not None:
+
+        def plain_in_chunks():
+            for lo in range(0, la.shape[0], plain_rows):
+                wv.warp_plain(X, la[lo:lo + plain_rows], lb[lo:lo + plain_rows])
+
+        plain_ms = _once_ms(plain_in_chunks)
+    elif entries <= 1 << 23:
+        plain_ms = cuda_ms(lambda: wv.warp_plain(X, la, lb), reps=3)
+    item = X.element_size()
+    n_bytes = item * (X.numel() + la.numel() + lb.numel() + entries)
+    bound, by = bound_ms(n_bytes, wv.k6_operations(entries), FLOPS[dtype])
+    tol = WARP_TOL[dtype]
+    return {"dtype": dtype, "shape": list(out_shape), "x_shape": list(X.shape),
+            "checked_rows": "all" if check_rows is None else list(check_rows),
+            "max_abs_err": err, "tol": tol, "pdf_max_rel_err": pdf_err,
+            "pdf_rtol": PDF_RTOL[dtype], "control_terms": CONTROL_TERMS[dtype],
+            "control_max_abs_err": control_err, "device_ops_per_call": ops_per_call,
+            "other_device_ops": foreign,
+            "ms": ms, "alone_ms": None if alone is None else alone / 1e3, "plain_ms": plain_ms,
+            "plain_in_chunks_of_rows": plain_rows, "bound_ms": bound, "bound_by": by,
+            "bytes": n_bytes, "operations": wv.k6_operations(entries), "library_ms": None,
+            "ok": finite and err <= tol and pdf_err <= PDF_RTOL[dtype] and control_err > tol
+            and 0 < ops_per_call <= 1 and not foreign}
+
+
+def unwarp_share(x, ref, Z, la, lb, dtype):
+    """The largest share of K7's limit over the entries of ``x``, an unwarp
+    of ``Z`` held to the float64 root ``ref``: per entry the smaller of
+    |x - ref| / UNWARP_TOL and |CDF64(x) - clamp(z)| / WARP_TOL (at most 1
+    passes)."""
+    import torch
+
+    from bask_tpu_torch.ops import warp_values as wv
+
+    x, la, lb = x.double(), la.double(), lb.double()
+    dx = (x - ref).abs() / UNWARP_TOL[dtype]
+    resid = (wv.warp_plain(x, la, lb) - Z.double().clamp(0.0, 1.0)).abs() / WARP_TOL[dtype]
+    return float(torch.minimum(dx, resid).max())
+
+
+def k7_check_and_time(dev, dtype, m, seed, check_limit=8192, chunk=4096, plain=True):
+    """K7 on a seeded (m, 15) grid of z with one (a, b) per column, as the
+    Optimizer's candidate grid: against its plain version in float64 on
+    the first ``check_limit`` rows (in chunks of ``chunk``) through
+    :func:`unwarp_share`, with the two controls that must miss the same
+    limit (the plain unwarp with short CDFs in its probes, and stopped
+    early); one device operation per call, the time alone and through the
+    wrapper, the plain version's time in its own type over all rows in the
+    same chunks, once (``plain``), and the bound; launches uncounted."""
+    import torch
+
+    from bask_tpu_torch.ops import warp_values as wv
+
+    Z, la, lb = _warp_case(dev, dtype, (m, N_DIM), (), seed)
+
+    def launch():
+        return wv.unwarp_values(Z, la, lb)
+
+    def check():
+        out = wv.unwarp_values(Z, la, lb)
+        la64, lb64 = la.double(), lb.double()
+        err = share = short_cdf = early = 0.0
+        for lo in range(0, min(m, check_limit), chunk):
+            z64 = Z[lo:lo + chunk].double()
+            ref = wv.unwarp_plain(z64, la64, lb64)
+            err = max(err, float((out[lo:lo + chunk].double() - ref).abs().max()))
+            share = max(share, unwarp_share(out[lo:lo + chunk], ref, z64, la, lb, dtype))
+            control = wv.unwarp_plain(z64, la64, lb64, terms=CONTROL_TERMS[dtype])
+            short_cdf = max(short_cdf, unwarp_share(control, ref, z64, la, lb, dtype))
+            control = wv.unwarp_plain(z64, la64, lb64, n_iter=6 * CONTROL_ROUNDS[dtype])
+            early = max(early, unwarp_share(control, ref, z64, la, lb, dtype))
+        return err, share, short_cdf, early, bool(torch.isfinite(out).all())
+
+    def plain_in_chunks():
+        for lo in range(0, m, chunk):
+            wv.unwarp_plain(Z[lo:lo + chunk], la, lb)
+
+    err, share, short_cdf, early, finite = _uncounted(check)
+    ops_per_call, foreign, alone = _uncounted(lambda: _ops_and_alone(launch, "unwarp_kernel"))
+    ms = _uncounted(lambda: cuda_ms(launch, reps=3))
+    plain_ms = _once_ms(plain_in_chunks) if plain else None
+    entries = m * N_DIM
+    n_bytes = Z.element_size() * (2 * entries + la.numel() + lb.numel())
+    ops = wv.k7_operations(entries, wv.rounds_for(60))
+    bound, by = bound_ms(n_bytes, ops, FLOPS[dtype])
+    tol = UNWARP_TOL[dtype]
+    return {"dtype": dtype, "shape": [m, N_DIM], "rounds": wv.rounds_for(60),
+            "checked_rows": min(m, check_limit), "max_abs_err": err, "tol": tol,
+            "tol_rule": "|dx| <= UNWARP_TOL or |CDF64(x) - z| <= WARP_TOL",
+            "largest_share_of_limit": share,
+            "control_short_cdf_share": short_cdf, "control_terms": CONTROL_TERMS[dtype],
+            "control_early_share": early, "control_rounds": CONTROL_ROUNDS[dtype],
+            "device_ops_per_call": ops_per_call, "other_device_ops": foreign, "ms": ms,
+            "alone_ms": None if alone is None else alone / 1e3, "plain_ms": plain_ms,
+            "plain_in_chunks_of_rows": chunk, "bound_ms": bound, "bound_by": by,
+            "bytes": n_bytes, "operations": ops, "library_ms": None,
+            "ok": finite and share <= 1.0 and short_cdf > 1.0 and early > 1.0
+            and 0 < ops_per_call <= 1 and not foreign}
+
+
+def phase_warp_kernels(dev):
+    """15 (a): K6 at the chain's half-batch (50, 512, 15) from shared X,
+    the draws' training X (256, 1,024, 15), a ragged per-row (64, 999, 7)
+    and the batch ask's queries (256, 65,536, 15) (checked on 4 rows); K7 at
+    (500, 15) and (65,536, 15); each at float32 and float64, against
+    float64, timed, with nvcc's registers and spills."""
+    k6, k7 = [], []
+    for dtype in ("float32", "float64"):
+        k6.append(k6_check_and_time(dev, dtype, (N_PAD, N_DIM), (N_WALKERS // 2,), 20))
+        k6.append(k6_check_and_time(dev, dtype, (BATCH_PAD, N_DIM), (BATCH_WALKERS,), 21))
+        k6.append(k6_check_and_time(dev, dtype, (64, 999, 7), (64,), 22))
+        k6.append(k6_check_and_time(dev, dtype, (BATCH_CAND, N_DIM), (BATCH_K,), 23,
+                                    check_rows=list(CHECK_DRAWS),
+                                    plain_rows=4 if dtype == "float32" else None))
+        k7.append(k7_check_and_time(dev, dtype, N_CAND, 24))
+        k7.append(k7_check_and_time(dev, dtype, BATCH_CAND, 25, plain=dtype == "float32"))
+
+    def ptxas(key, skip=None):
+        return [{"entry": e, "registers": r, "spill_bytes": sp}
+                for e, r, sp, _ in _ptxas_entries(key) if skip is None or skip not in e]
+
+    out = {"k6": k6, "k7": k7, "ptxas": {"k6": ptxas("warp_kernel", skip="unwarp"),
+                                         "k7": ptxas("unwarp_kernel")}}
+    report("phase 15 (a) K6 and K7 alone", **out)
+    failed = [(c["dtype"], c["shape"]) for c in k6 + k7 if not c["ok"]]
+    if failed:
+        raise AssertionError(f"K6/K7 failed their checks at {failed}")
+    return out
+
+
+def _draws_f64_warped(gp, spec, rows, rand, Xq):
+    """The pathwise draws of warped ``rows`` (one each) recomputed in
+    float64: each row's warp of the training points and the queries by
+    the plain version, the plain gram and cholesky_ex, the same randoms."""
+    import torch
+
+    from bask_tpu_torch.models import pathwise
+    from bask_tpu_torch.models import warping as twp
+    from bask_tpu_torch.ops import gram
+    from bask_tpu_torch.ops import warp_values as wv
+
+    d = gp._data
+    data = d._replace(y=d.y.double(), alpha_diag=d.alpha_diag.double())
+    out = []
+    for i in range(rows.shape[0]):
+        row = rows[i].double()
+        theta, la, lb = twp.split_warp_params(row[None], N_DIM)
+        X64 = wv.warp_plain(d.X.double(), la[0], lb[0])
+        Xq64 = wv.warp_plain(Xq.double(), la[0], lb[0])
+        K = gram.fused_masked_gram_plain(spec, theta, X64, data.alpha_diag, BATCH_OBS)
+        L, _ = torch.linalg.cholesky_ex(K)
+
+        def solve(R, L=L):
+            return torch.cholesky_solve(R, L)
+
+        part = pathwise.PathwiseRandoms(*(None if r is None else r[i:i + 1].double() for r in rand))
+        out.append(pathwise._draw_values(spec, theta, X64, data._replace(X=X64), solve, Xq64,
+                                         part)[0, :, 0])
+        del Xq64
+    return torch.stack(out)
+
+
+def phase_warped_batch_ask(dev):
+    """15 (b), this slice's path: BASELINE configs[4] with input warping
+    (n = 1,000 in 15-D padded to 1,024, 256 walkers, normalized y): a cold
+    tell cut to 11 steps with an EI pass over 65,536 warp-density
+    candidates, then ``ask(n_points=256)`` twice; K7 for each candidate
+    grid, K6 for the chain's per-walker X and the draws' training X and
+    queries, K1 for the per-walker grams, K3 for the factorizations, K5
+    twice an ask in one chunk (K4 serves only the consensus's shared
+    warped X); 4 draws against float64. Returns the launch counts and the
+    numbers."""
+    import torch
+
+    from bask_tpu_torch import Optimizer
+    from bask_tpu_torch.models import pathwise
+    from bask_tpu_torch.ops import gram
+    from bask_tpu_torch.ops import kernels as bk
+
+    X, y = batch_dataset()
+    kernel = bk.ConstantKernel(1.0, (0.1, 2.0)) * bk.Matern((0.3,) * N_DIM, (0.05, 2.0), nu=2.5)
+    opt = Optimizer(
+        dimensions=[(0.0, 1.0)] * N_DIM, n_points=BATCH_CAND, n_initial_points=BATCH_OBS,
+        gp_kernel=kernel, gp_kwargs={"normalize_y": True, "warp_inputs": True},
+        acq_func="ei",
+        gp_sample_kwargs={"until_rhat": None, "n_walkers_per_thread": BATCH_WALKERS},
+        random_state=0, device=dev,
+    )
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in _kernel_counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    opt.tell(X.tolist(), y.tolist(), n_samples=5, gp_samples=BATCH_WALKERS, gp_burnin=10)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    per_step = {"tell": _counts()}
+    ask_s, points = [], []
+    for i in range(2):
+        before = _counts()
+        t0 = time.perf_counter()
+        points.append(np.asarray(opt.ask(n_points=BATCH_K)))
+        torch.cuda.synchronize()
+        ask_s.append(time.perf_counter() - t0)
+        per_step[f"ask {i + 1}"] = _since(before)
+    launches = _counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    # a profiled ask (after a warm-up ask; neither counted), the grid and
+    # the top-k apart
+    ops, wall_s = _uncounted(lambda: _profiled_retry(lambda: opt.ask(n_points=BATCH_K)))
+    by_name = {}
+    for e in ops:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    ask_profile = {"device_ops": len(ops), "device_us": sum(by_name.values()),
+                   "wall_us": 1e6 * wall_s, "busy_share": sum(by_name.values()) / (1e6 * wall_s),
+                   "top_kernels_us": [[k[:60], v] for k, v in top]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cand = _uncounted(opt._candidate_grid)
+    torch.cuda.synchronize()
+    ask_profile["candidate_grid_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _uncounted(lambda: opt.gp.thompson_argmin_pathwise(
+        cand, n_samples=BATCH_K, top_k=2 * BATCH_K, random_state=1, sample_mean=False))
+    torch.cuda.synchronize()
+    ask_profile["thompson_argmin_pathwise_s"] = time.perf_counter() - t0
+    distinct = [len({tuple(p) for p in pts}) for pts in points]
+    inside = all(bool(((pts >= 0.0) & (pts <= 1.0)).all()) for pts in points)
+
+    # 4 of 256 warped draws against float64, on a grid and rows as an ask
+    # forms them
+    gp = opt.gp
+    spec = gram.match_fusable(gp._spec)
+    grid = gp._tensor(np.random.RandomState(8).uniform(size=(BATCH_CAND, N_DIM)))
+    rows = gp._tensor(gp.chain_[np.random.RandomState(9).choice(len(gp.chain_), BATCH_K)])
+    rand = gp._pathwise_randoms(spec, 9, 1024, 1, batch=(BATCH_K,))
+    keep = list(CHECK_DRAWS)
+    _, draws32 = _uncounted(lambda: pathwise.pathwise_topk_hyper(
+        spec, rows, gp._data, grid, rand, N_DIM, 8, n_real=BATCH_OBS, keep=keep))
+    sub = pathwise.PathwiseRandoms(*(None if r is None else r[keep] for r in rand))
+    draws64 = _draws_f64_warped(gp, spec, rows[keep], sub, grid)
+    err = (draws32.double() - draws64).abs().max(dim=1).values
+    scale = draws64.abs().max(dim=1).values
+    tol = DRAW_REL_TOL * scale
+    draws_ok = bool((err <= tol).all())
+    chunk = pathwise.draws_per_chunk(BATCH_K, BATCH_CAND, N_DIM, N_DIM, 4, warp_on_kernels=True)
+    report(
+        "phase 15 (b) warped batch ask", n=BATCH_OBS, n_pad=BATCH_PAD, walkers=BATCH_WALKERS,
+        candidates=BATCH_CAND, batch=BATCH_K, cold_tell_s=cold_s, ask_s=ask_s,
+        last_timings=opt.last_timings_, distinct_points=distinct, inside_bounds=inside,
+        launches=per_step, peak_mem_gb=peak_gb, draws_per_chunk=chunk, ask_profile=ask_profile,
+        warp_alphas=gp.warp_alphas_.tolist(), warp_betas=gp.warp_betas_.tolist(),
+        draws_f64={"draws": keep, "max_abs_err": err.tolist(), "scale": scale.tolist(),
+                   "rel_err": (err / scale).tolist(), "tol": tol.tolist(), "ok": draws_ok},
+    )
+    asks = [per_step[f"ask {i}"] for i in (1, 2)]
+    checks = {
+        "256 distinct points per ask": distinct == [BATCH_K, BATCH_K],
+        "points inside bounds": inside,
+        "K1, K3, K5, K6 and K7 launched": all(launches[k] > 0 for k in ("K1", "K3", "K5", "K6",
+                                                                       "K7")),
+        "the tell's per-walker grams on K1": per_step["tell"]["K1"] > 0,
+        "one chunk of 256 draws on K6's route": chunk == BATCH_K,
+        "K5 exactly twice in each ask": all(a["K5"] == 2 for a in asks),
+        "K6 twice in each ask (training X, queries)": all(a["K6"] == 2 for a in asks),
+        "K7 once in each ask (the candidate grid)": all(a["K7"] == 1 for a in asks),
+        "K1 and 8 K3 in each ask": all(a["K1"] == 1 and a["K3"] == 8 for a in asks),
+        "4 draws agree with float64": draws_ok,
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"warped batch-ask phase failed: {failed}")
+    return launches, {"cold_tell_s": cold_s, "ask_s": ask_s, "peak_mem_gb": peak_gb,
+                      "ask_profile": ask_profile}
+
+
+def _warp_row(cases, main_shape):
+    """The kernels line's numbers of K6 or K7: those of the float32 launch
+    at the slice's shape ``main_shape``, every launch timed beside them."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    main = next(c for c in cases if c["dtype"] == "float32" and c["shape"] == main_shape)
+    limit = {k: main[k] for k in ("tol_rule", "largest_share_of_limit") if k in main}
+    return {**{k: main[k] for k in keys}, **limit, "at_shape": main_shape,
+            "all_launches": [{k: c[k] for k in ("dtype", "shape", "alone_ms", "tol") + keys}
+                             for c in cases]}
+
+
 def main() -> int:
     import torch
 
@@ -3161,18 +3621,23 @@ def main() -> int:
     # session that starts seconds after an earlier one can record no device
     # operation at all (scripts/profiler_after_fits.py)
     k4, k4_path = timed("11", phase_wb_gram, dev)
+    # phase 15 (a), K6 and K7 alone, profiles many short launches: it runs
+    # here too, before the fits
+    warp_alone = timed("15 (a)", phase_warp_kernels, dev)
     timed("5", phase_lml, dev)
     opt = timed("6", phase_optimizer, dev)
     by_path = {}
-    by_path["phase 7 warped tell"], warped_opt = timed("7", phase_warped_optimizer, dev)
+    by_path["phase 7 warped tell"], warped_opt, _ = timed(
+        "7", phase_warped_optimizer, dev)
     by_path["phase 8 batch ask"], k1_batch, k4_batch, k3_batch, k5, batch_gp = timed(
         "8", phase_batch_ask, dev)
     by_path["phase 9 polish"] = timed("9", phase_stopping_polish, opt, dev)
     by_path["phase 10 fit options"] = timed("10", phase_fit_options, opt, dev)
     by_path["phase 11 bench_gram_wb"] = k4_path
     by_path["phase 12 meshes"], k3_rows = timed("12", phase_mesh, dev)
-    by_path["phase 13 graphed chains"] = timed("13", phase_tooling, opt, warped_opt, dev)
+    by_path["phase 13 graphed chains"], chains = timed("13", phase_tooling, opt, warped_opt, dev)
     by_path["phase 14 factorization routes"] = timed("14", phase_switches, opt, batch_gp, dev)
+    by_path["phase 15 warped batch ask"], warped_ask = timed("15 (b)", phase_warped_batch_ask, dev)
     report("phase seconds", **seconds, total=sum(seconds.values()))
 
     def launches(key):
@@ -3203,6 +3668,18 @@ def main() -> int:
          "source": "bask_tpu_torch/csrc/pathwise.cu",
          "replaces": "none (XLA's fusion in bask_tpu/models/pathwise.py:54-112 and :130-215)",
          **launches("K5"), **k5},
+        # no TPU kernel: XLA fused betainc into the jitted log-probability
+        # and compiled the unwarp's bisection into one program
+        {"name": "K6 Beta-CDF input warp", "route": "cuda",
+         "source": "bask_tpu_torch/csrc/warp.cu",
+         "replaces": "none (XLA's fusion of betainc in bask_tpu/models/warping.py:33-37)",
+         **launches("K6"), **_warp_row(warp_alone["k6"], [BATCH_K, BATCH_CAND, N_DIM]),
+         "ptxas": warp_alone["ptxas"]["k6"]},
+        {"name": "K7 Beta-PPF search (unwarp)", "route": "cuda",
+         "source": "bask_tpu_torch/csrc/warp.cu",
+         "replaces": "none (XLA's fori_loop in bask_tpu/models/warping.py:63-79)",
+         **launches("K7"), **_warp_row(warp_alone["k7"], [BATCH_CAND, N_DIM]),
+         "ptxas": warp_alone["ptxas"]["k7"]},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

@@ -35,7 +35,12 @@ kernel up to 31, PR 10's FP32 kernel past it), shared and per-row
 queries, with and without the cross term, Cauchy-tailed features on the
 float64 path, bit-equal across launches, its launch plan, a NaN row, its
 refusals, and the batch ask's draws launching it twice without a
-(m, n_pad) slab.
+(m, n_pad) slab; K6 and K7 (the input warp and its inverse) against
+their float64 plain versions at float32 and float64 (shared and per-row
+inputs, a ragged n, d past 256, x at and past the ends), one launch per
+call, the card's x-gradient through the autograd Function against the
+pdf (and its refusal of a gradient in the log-parameters), and both
+captured in a CUDA graph, replayed bit-equal to eager.
 
 Every test here needs a CUDA card and skips without one. The file
 imports no JAX, so it also runs where only the port is installed:
@@ -1266,3 +1271,133 @@ def test_pathwise_topk_hyper_launches_k5_without_slabs(dev):
     assert pv.pathwise_values.launches == before + 2
     assert torch.cuda.max_memory_allocated(dev) - base < 4 * m * n_pad
     assert idx.shape == (S, 8) and bool((idx >= 0).all() and (idx < m).all())
+
+
+# -- K6 and K7, the input warp and its inverse (csrc/warp.cu) --------------
+
+# K6 and K7 against their plain versions in float64 on the same inputs:
+# the largest |difference| of the warp (values in [0, 1]) and the relative
+# difference of the pdf; the unwarp's x within UNWARP_TOL of the float64
+# root, or its float64 CDF within WARP_TOL of z; chip_smoke.py phase 15's
+# limits, set from readings on an H100 (PERF.md)
+WARP_TOL = {torch.float32: 3e-6, torch.float64: 5e-15}
+PDF_RTOL = {torch.float32: 5e-5, torch.float64: 1e-13}
+UNWARP_TOL = {torch.float32: 1e-6, torch.float64: 2e-15}
+
+
+def _warp_inputs(dev, dtype, shape, rows, seed=0):
+    """X (or Z) of ``shape`` uniform in [0, 1] with its first entries at
+    0, 1e-12, 1 - 1e-12 and 1 and two past the ends (clamped), and
+    log-parameters of ``rows`` rows (``()``: one (d,) pair per column)
+    uniform over the warp prior's 5-sigma range [-1.5, 1.5]."""
+    rng = np.random.RandomState(seed)
+    X = rng.uniform(size=shape)
+    flat = X.reshape(-1)
+    flat[:6] = [0.0, 1e-12, 1.0 - 1e-12, 1.0, -0.25, 1.25]
+    la, lb = (rng.uniform(-1.5, 1.5, rows + (shape[-1],)) for _ in range(2))
+    return [torch.tensor(a, dtype=dtype, device=dev) for a in (X, la, lb)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,rows", [((512, 15), (50,)), ((8, 1000, 15), (8,)),
+                                        ((3, 77, 300), (3,)), ((33, 1), ())])
+def test_warp_kernel_matches_float64_plain(dev, dtype, shape, rows):
+    """K6 (and warping.warp, which routes a CUDA tensor to it) against the
+    float64 plain version on the same inputs: the chain's shared X under
+    50 walkers, per-row X at a ragged n, d past 256 (two column groups),
+    one column; the pdf beside it; one launch per call."""
+    from bask_tpu_torch.models import warping as twp
+    from bask_tpu_torch.ops import warp_values as wv
+
+    X, la, lb = _warp_inputs(dev, dtype, shape, rows)
+    before = wv.warp_values.launches
+    out, pdf = wv.warp_values(X, la, lb, with_pdf=True)
+    routed = twp.warp(X, la, lb)
+    torch.cuda.synchronize()
+    assert wv.warp_values.launches == before + 2
+    assert out.dtype == dtype and torch.equal(out, routed)
+    X64, la64, lb64 = (t.double() for t in (X, la, lb))
+    ref = wv.warp_plain(X64, la64, lb64)
+    assert out.shape == ref.shape
+    err = float((out.double() - ref).abs().max())
+    assert err <= WARP_TOL[dtype], err
+    pdf_ref = wv.beta_pdf_plain(X64, la64, lb64)
+    finite = torch.isfinite(pdf_ref) & (pdf_ref > 1e-30)
+    rel = float(((pdf.double() - pdf_ref) / pdf_ref)[finite].abs().max())
+    assert rel <= PDF_RTOL[dtype], rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,rows,n_iter", [((500, 15), (), 60), ((3, 77, 5), (3,), 61),
+                                               ((64, 4), (), 6)])
+def test_unwarp_kernel_matches_float64_plain(dev, dtype, shape, rows, n_iter):
+    """K7 (and warping.unwarp) against the float64 plain version on the
+    same inputs, shared and per-row, 10, 11 and 1 rounds; one launch."""
+    from bask_tpu_torch.models import warping as twp
+    from bask_tpu_torch.ops import warp_values as wv
+
+    Z, la, lb = _warp_inputs(dev, dtype, shape, rows, seed=1)
+    before = wv.unwarp_values.launches
+    out = twp.unwarp(Z, la, lb, n_iter=n_iter)
+    torch.cuda.synchronize()
+    assert wv.unwarp_values.launches == before + 1 and out.dtype == dtype
+    ref = wv.unwarp_plain(Z.double(), la.double(), lb.double(), n_iter)
+    diff = (out.double() - ref).abs()
+    if n_iter <= 6:  # one round: its bracket
+        assert float(diff.max()) <= 2.0 ** -6
+        return
+    resid = (wv.warp_plain(out.double(), la.double(), lb.double())
+             - Z.double().clamp(0.0, 1.0)).abs()
+    share = float(torch.minimum(diff / UNWARP_TOL[dtype], resid / WARP_TOL[dtype]).max())
+    assert share <= 1.0, (share, float(diff.max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_warp_gradient_on_the_card(dev, dtype):
+    """The card's x-gradient (the Function around K6 with its pdf): the
+    incoming gradient times the float64 plain pdf, summed over walkers, 0
+    where the clamp cut X; a gradient in the log-parameters raises."""
+    from bask_tpu_torch.models import warping as twp
+    from bask_tpu_torch.ops import warp_values as wv
+
+    X, la, lb = _warp_inputs(dev, dtype, (200, 6), (10,), seed=2)
+    G = torch.rand(10, 200, 6, dtype=dtype, device=dev)
+    Xg = X.clone().requires_grad_(True)
+    before = wv.warp_values.launches
+    (g,) = torch.autograd.grad((twp.warp(Xg, la, lb) * G).sum(), Xg)
+    assert wv.warp_values.launches == before + 1
+    pdf = wv.beta_pdf_plain(X.double(), la.double(), lb.double())
+    inside = (X >= 0) & (X <= 1)
+    ref = torch.where(inside, (G.double() * pdf).sum(0), 0.0)
+    ok = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(g), ok)
+    rel = float(((g.double() - ref) / ref.abs().clamp(min=1e-30))[ok & (ref != 0)].abs().max())
+    assert rel <= PDF_RTOL[dtype], rel
+    assert float(g[0, 4]) == 0.0 and float(g[0, 5]) == 0.0  # -0.25 and 1.25, clamped
+    with pytest.raises(RuntimeError, match="no derivative in log_alphas"):
+        twp.warp(Xg, la.clone().requires_grad_(True), lb)
+
+
+def test_warp_kernels_in_a_cuda_graph(dev):
+    """K6 and K7 captured in a CUDA graph (on the capture's stream, torch
+    allocations only) and replayed on refilled inputs: bit-equal to the
+    eager launches."""
+    from bask_tpu_torch.models import warping as twp
+
+    X, la, lb = _warp_inputs(dev, torch.float32, (512, 15), (50,), seed=3)
+    Z = X.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        twp.warp(X, la, lb), twp.unwarp(Z, la[0], lb[0])
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        w, u = twp.warp(X, la, lb), twp.unwarp(Z, la[0], lb[0])
+    X2, la2, lb2 = _warp_inputs(dev, torch.float32, (512, 15), (50,), seed=4)
+    for t, new in ((X, X2), (Z, X2), (la, la2), (lb, lb2)):
+        t.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(w, twp.warp(X2, la2, lb2))
+    assert torch.equal(u, twp.unwarp(X2, la2[0], lb2[0]))

@@ -284,8 +284,9 @@ def test_unwarped_topk_hyper_one_chunk_equals_chunks_of_one(monkeypatch):
 
 def test_draws_per_chunk_at_the_batch_ask():
     """At m = 65,536 in float32 (d = 15): one chunk of 256 draws unwarped,
-    two K5 launches per ask; 5 draws a chunk warped, where the warp's
-    (48, m, d) coefficients per draw set the size."""
+    two K5 launches per ask; 5 draws a chunk warped on the plain warp's
+    route (a CPU tensor), where the warp's (48, m, d) coefficients per draw
+    set the size (K6's route: tests/test_torch_warp_kernels.py)."""
     assert tpw.draws_per_chunk(256, 65536, 15, 0, 4) == 256
     assert tpw.draws_per_chunk(8192, 65536, 15, 0, 4) == 4096
     assert tpw.draws_per_chunk(256, 65536, 15, 15, 4) == 5
