@@ -8,39 +8,44 @@
 // X (n, d) shared by every row or (B, n, d) one per row, and optionally the
 // Beta pdf at the clamped x (the derivative JAX's betainc has in x, for
 // the backward). K7 computes models/warping.unwarp's function: the x with
-// I_x(a, b) = clamp(z, 0, 1), found by ceil(n_iter / 6) rounds of a 64-way
-// search on [0, 1], returned as the midpoint of the last bracket.
+// I_x(a, b) = clamp(z, 0, 1), by 6 * rounds bisection steps on [0, 1]
+// (rounds = ceil(n_iter / 6): the 2^-60 bracket of the JAX package's 60
+// steps by default), returned as the midpoint of the last bracket.
 //
 // What they replace: XLA's fusion of jax.scipy.special.betainc inside the
 // JAX package's jitted log-probability (bask_tpu/models/warping.py:33-37,
 // which "fuses with the Gram construction") and the fori_loop bisection of
 // its unwarp (:63-79), one device program each. There is no Pallas kernel.
-// Run op by op, the port's plain version launched once per continued-
-// fraction term over (48, *x.shape) coefficient tensors, and the unwarp
-// ran 10 rounds of that on 63 probes at once.
 //
-// The function, per entry, is the plain version's (models/warping.py
-// betainc) step for step: the x > (a + 1) / (a + b + 2) flip to the
-// symmetric side, the front exp(aa log xx + bb log1p(-xx) - betaln(aa, bb)
-// - log aa), and the 48-term continued fraction
-//   d_{2m+1} = -(aa + m)(aa + bb + m) xx / ((aa + 2m)(aa + 2m + 1))
-//   d_{2m}   =  m (bb - m) xx / ((aa + 2m - 1)(aa + 2m))
-//   u = 1 + d_1 / (1 + d_2 / (1 + ...)),  I = front / u  (1 - that if flipped)
-// summed backward from the tail, each operation in the plain version's
-// order. betaln is symmetric in a and b, so it is taken once per column
-// (lgamma(a) + lgamma(b) - lgamma(a + b) equals the flipped sum exactly),
-// and log a and log b beside it. No approximate intrinsic: logf, log1pf,
-// expf, lgammaf and IEEE divisions (the double versions at float64). nvcc
-// may contract a multiply and an add into one FMA (its default), so the
-// kernels are not bit-equal to the plain version; they are held to it in
-// float64 within stated tolerances (chip_smoke.py phase 15).
+// The function, per entry, is the plain version's (ops/warp_values.py
+// betainc): the x > (a + 1) / (a + b + 2) flip to the symmetric side
+// (aa, bb, xx) = (b, a, 1 - x), the front exp(aa log xx + bb log1p(-xx) -
+// betaln(a, b) - log aa), and the 48-term continued fraction
+//   d_k = c_k xx,  c_{2m+1} = -(aa + m)(aa + bb + m) / ((aa + 2m)(aa + 2m + 1)),
+//                  c_{2m}   =  m (bb - m) / ((aa + 2m - 1)(aa + 2m)),
+//   u = 1 + d_1 / (1 + d_2 / (1 + ...)),  I = front / u  (1 - that if flipped),
+// summed from the tail. The plain version makes c_k per entry and divides
+// twice a term (u = 1 + d_k / u). Here u is carried as a ratio P / Q: from
+// P = Q = 1 at the tail, each term is (P, Q) <- (P + (c_k xx) Q, P), one
+// multiply and one FMA, and 1 / u = Q / P is one division at the end. Over
+// a, b in [0.01, 100] |log2 P| stays below 80, inside float32's exponent
+// range, so no rescaling is needed (tests/test_torch_warp_kernels.py
+// holds that). The front takes log x and log1p(-x) of the clamped x on
+// either side (aa log xx + bb log1p(-xx) is a log x + b log1p(-x) both
+// ways), and the pdf, exp((a - 1) log x + (b - 1) log1p(-x) - betaln),
+// reuses them. No approximate intrinsic: logf, log1pf, expf, lgammaf and
+// IEEE divisions (the double versions at float64). The kernels are not
+// bit-equal to the plain version; they are held to it in float64 within
+// stated tolerances (chip_smoke.py phase 15, tests/test_torch_cuda.py).
 //
-// K7 keeps the plain version's search exactly: the probes of a round are
-// lo + width * (k / 64), k = 1..63, in the tensor's type; the count of
-// probes whose CDF lies below z moves lo by count * (width / 64), and width
-// becomes width / 64 (powers of two, exact). One warp owns one entry: lane l
-// evaluates probes l + 1 and l + 33 (lane 31 only the first), __ballot_sync
-// and __popc count the votes, and every lane updates the same lo.
+// K7 is a bisection: lo = 0, w = 1; each step halves w, probes mid = lo + w
+// and keeps mid as lo where the CDF there lies below z. Where the CDF is
+// monotone in the type's arithmetic that finds the bracket of the plain
+// version's 64-way search (63 probes a round, ops/warp_values.py
+// unwarp_plain, 6 bisection steps' worth); where rounding makes it
+// non-monotone the two may part by a bracket, so K7 is held to the
+// float64 root within a limit (x within UNWARP_TOL of it, or its float64
+// CDF within WARP_TOL of z), not to the plain search bit for bit.
 //
 // What bounds them on an H100: operations. Counted as ops/warp_values.py
 // does (k6_operations, k7_operations: what the function needs, a division,
@@ -48,51 +53,79 @@
 // once a column's 48 coefficients are made) and moves no byte beyond its
 // input and output: at the batch ask's queries, (256, 65,536, 15) from
 // shared X, 4.1e10 operations (0.61 ms at 67 TFLOP/s) against 1.0 GB
-// written (0.30 ms at 3.35 TB/s); the unwarp of a 65,536 x 15 grid to a
-// 2^-60 bracket, 60 bisection steps an entry, 9.6e9 operations (0.14 ms)
-// against 7.9 MB. The designs spend more: K6 ~10 operations a term (the
-// plain version's, coefficients made per entry) and K7 63 CDFs a round,
-// ~3x and ~10x the counts; the divisions and transcendentals are several
-// instructions each.
+// written (0.30 ms at 3.35 TB/s); the unwarp of a 65,536 x 15 grid, 60
+// bisection steps an entry, 9.6e9 operations (0.14 ms) against 7.9 MB.
 //
-// What the designs do about it: nothing but the inputs and the outputs
-// reach the card's memory and no coefficient is stored. K6's block gives each thread one
-// column (threads = d * floor(256 / d) for d <= 256; past that, groups of
-// 256 columns) and walks it over a run of rows,
-// so a, b, betaln, log a and log b are computed once per thread and
-// column, not per entry; consecutive threads write consecutive entries.
-// K7's lanes share the entry's column constants the same way and spend
-// every instruction on probes, with no data-dependent branch (a flipped
-// and an unflipped probe run the same instructions).
+// What the designs do about it. The coefficients c_k depend on the
+// column's (a, b) and the side of the flip only, never on x: each block
+// serves one row b and a group of at most 32 columns, and at its start
+// its threads write the group's column constants (a, b, the flip point,
+// betaln, log a, log b) and both sides' 48 coefficients into static shared
+// memory (48 x 32 pairs, 12.3 KB at float32, 24.6 KB at float64), term
+// major at a fixed stride, so that the threads of a warp, on consecutive
+// columns, read consecutive pairs at immediate offsets. A term then costs
+// an entry one select of its side's coefficient, one multiply and one FMA.
+// Each thread owns one column over a run of rows and carries R entries of
+// it through the fraction at once (4, in K6 and K7), reading each term's
+// pair of coefficients with one shared load for all R: one load a term an
+// entry would make the shared-memory pipe (32 words a clock) the limit
+// instead of the FP32 pipes (128 lanes a clock), and the R independent
+// chains hide the FMA's latency. The fraction is unrolled 8 terms at a
+// time, and a thread takes 50-64 registers at float32 (4 blocks of 256
+// threads an SM): unrolled whole, the compiler loads all 48 pairs ahead
+// and a thread took 128-154 registers, one or two blocks an SM, up to 1.3x
+// slower (scripts/warp_ab.py, PERF.md). K7 runs one thread per entry's
+// bisection, 60 CDFs an entry, the count its bound assumes (a 64-way
+// search spends 630). Where the grid is too small to fill the card (the
+// north-star tell's 500 x 15, 7,500 entries) K7 waits on the latency of
+// its 60 dependent steps: there each thread carries one entry, the
+// fraction is unrolled whole, and blocks shrink below 256 threads so that
+// every SM gets some. Nothing but the inputs and the outputs reaches the
+// card's memory.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTerms = 48;        // ops/warp_values.py CF_TERMS
-constexpr int kWays = 64;         // ops/warp_values.py WAYS
-constexpr int kWarpThreads = 256; // K6: at most this many threads a block
-constexpr int kUnwarpWarps = 8;   // K7: warps (entries) a block
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTerms = 48;     // ops/warp_values.py CF_TERMS
+constexpr int kThreads = 256;  // at most this many threads a block
+constexpr int kMaxWidth = 32;  // at most this many columns a block
+constexpr int kSMs = 132;      // an H100 SXM's SMs, for the launch plan
+// entries a thread carries (K6; K7 where its grid fills the card)
+constexpr int kK6Entries = 4;
+constexpr int kK7Entries = 4;
+// terms of the fraction unrolled together: a full unroll lets the compiler
+// load all 48 pairs ahead, at 2 registers a pair (4 at float64)
+constexpr int kUnroll = 8;
+// scripts/warp_ab.py times other values of these three in turns
 
 template <typename T>
 struct Fn;
 
 template <>
 struct Fn<float> {
+  using Pair = float2;
   static __device__ __forceinline__ float log(float x) { return logf(x); }
   static __device__ __forceinline__ float log1p(float x) { return log1pf(x); }
   static __device__ __forceinline__ float exp(float x) { return expf(x); }
   static __device__ __forceinline__ float lgamma(float x) { return lgammaf(x); }
+  static __device__ __forceinline__ float fma(float a, float b, float c) { return fmaf(a, b, c); }
 };
 
 template <>
 struct Fn<double> {
+  using Pair = double2;
   static __device__ __forceinline__ double log(double x) { return ::log(x); }
   static __device__ __forceinline__ double log1p(double x) { return ::log1p(x); }
   static __device__ __forceinline__ double exp(double x) { return ::exp(x); }
   static __device__ __forceinline__ double lgamma(double x) { return ::lgamma(x); }
+  static __device__ __forceinline__ double fma(double a, double b, double c) {
+    return ::fma(a, b, c);
+  }
 };
+
+template <typename T>
+using Pair = typename Fn<T>::Pair;  // .x unflipped, .y flipped
 
 // what a column's (a, b) give every entry of the column
 template <typename T>
@@ -113,98 +146,221 @@ __device__ __forceinline__ Column<T> column(T log_alpha, T log_beta) {
   return c;
 }
 
+// c_k of the side (aa, bb), k = 1..48: d_k / xx of the plain version
+template <typename T>
+__device__ __forceinline__ T coefficient(T aa, T bb, int k) {
+  const T m = T(k / 2);
+  const T num = (k & 1) ? -(aa + m) * ((aa + bb) + m) : m * (bb - m);
+  const T ak = aa + T(k);
+  return num / ((ak - T(1)) * ak);
+}
+
 // torch.clamp(x, 0, 1): NaN stays NaN (fminf/fmaxf would drop it)
 template <typename T>
 __device__ __forceinline__ T clamp01(T x) {
   return x < T(0) ? T(0) : (x > T(1) ? T(1) : x);
 }
 
-// I_x(a, b) for x in [0, 1]: warping.betainc, operation for operation
+// The block's tables: the constants of columns j0 .. j0 + width - 1 of
+// row b (those below d) and their coefficients, coef[(k - 1) * kMaxWidth +
+// c] = (c_k unflipped, c_k flipped) (a fixed stride, so that a term's
+// address is an immediate offset). Every thread of the block takes part.
 template <typename T>
-__device__ __forceinline__ T beta_cdf(const Column<T>& c, T x) {
-  using F = Fn<T>;
-  const bool flip = x > c.flip_at;
-  const T aa = flip ? c.b : c.a;
-  const T bb = flip ? c.a : c.b;
-  const T xx = flip ? T(1) - x : x;
-  const T log_front = aa * F::log(xx) + bb * F::log1p(-xx) - c.betaln - (flip ? c.log_b : c.log_a);
-  const T apb = aa + bb;
-  T u = T(1);
-#pragma unroll 8
-  for (int k = kTerms; k >= 1; --k) {
-    const T m = T(k / 2);
-    const T num = (k & 1) ? -(aa + m) * (apb + m) : m * (bb - m);
-    const T ak = aa + T(k);
-    const T dk = num * xx / ((ak - T(1)) * ak);
-    u = T(1) + dk / u;
+__device__ __forceinline__ void build_tables(const T* __restrict__ la, const T* __restrict__ lb,
+                                             int j0, int width, int d, Column<T>* cols,
+                                             Pair<T>* coef) {
+  for (int c = threadIdx.x; c < width; c += blockDim.x)
+    if (j0 + c < d) cols[c] = column(la[j0 + c], lb[j0 + c]);
+  __syncthreads();
+  for (int t = threadIdx.x; t < kTerms * width; t += blockDim.x) {
+    const int c = t % width;
+    if (j0 + c >= d) continue;
+    const int k = t / width + 1;
+    const T a = cols[c].a, b = cols[c].b;
+    Pair<T> p;
+    p.x = coefficient(a, b, k);
+    p.y = coefficient(b, a, k);
+    coef[(k - 1) * kMaxWidth + c] = p;
   }
-  const T front = F::exp(log_front) / u;
-  return flip ? T(1) - front : front;
+  __syncthreads();
 }
 
-// the Beta pdf at x in [0, 1], as JAX's betainc derivative in x forms it:
-// exp((b - 1) log1p(-x) + (a - 1) log x - betaln(a, b))
-template <typename T>
-__device__ __forceinline__ T beta_pdf(const Column<T>& c, T x) {
+// 1 / u of the continued fraction at R entries of one column (coef: the
+// column's first pair): (P, Q) from the tail, one division. One entry a
+// thread (K7 on a grid too small to fill the card) waits on the latency of
+// its dependent terms, so there all 48 are unrolled.
+template <typename T, int R>
+__device__ __forceinline__ void inverse_fraction(const Pair<T>* coef, const bool (&flip)[R],
+                                                 const T (&xx)[R], T (&inv_u)[R]) {
+  T P[R], Q[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) P[r] = Q[r] = T(1);
+#pragma unroll (R == 1 ? kTerms : kUnroll)
+  for (int k = kTerms - 1; k >= 0; --k) {
+    const Pair<T> ck = coef[k * kMaxWidth];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const T t = (flip[r] ? ck.y : ck.x) * xx[r];
+      const T p = Fn<T>::fma(t, Q[r], P[r]);
+      Q[r] = P[r];
+      P[r] = p;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) inv_u[r] = Q[r] / P[r];
+}
+
+// I_x(a, b) at R entries x in [0, 1] of one column, and their log x and
+// log1p(-x) (for the pdf)
+template <typename T, int R>
+__device__ __forceinline__ void beta_cdf(const Column<T>& c, const Pair<T>* coef,
+                                         const T (&x)[R], T (&cdf)[R], T (&lx)[R],
+                                         T (&l1x)[R]) {
   using F = Fn<T>;
-  return F::exp((c.b - T(1)) * F::log1p(-x) + (c.a - T(1)) * F::log(x) - c.betaln);
+  bool flip[R];
+  T xx[R], inv_u[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    flip[r] = x[r] > c.flip_at;
+    xx[r] = flip[r] ? T(1) - x[r] : x[r];
+  }
+  inverse_fraction<T, R>(coef, flip, xx, inv_u);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    lx[r] = F::log(x[r]);
+    l1x[r] = F::log1p(-x[r]);
+    const T log_front =
+        c.a * lx[r] + c.b * l1x[r] - c.betaln - (flip[r] ? c.log_b : c.log_a);
+    const T front = F::exp(log_front) * inv_u[r];
+    cdf[r] = flip[r] ? T(1) - front : front;
+  }
 }
 
-// K6. Block (b, column group g, run of rows): thread t owns column
-// g * width + t % width (width = min(d, 256)) and the rows t / width,
-// t / width + rows_per_pass, ... of the run.
-template <typename T>
-__global__ void __launch_bounds__(kWarpThreads)
+// K6. Block (b, column group g, run of rows): after the tables, thread t
+// owns column g * width + t % width and the rows t / width + q *
+// rows_per_pass of the run, R at a time (q, q + 1, ..., q + R - 1).
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads)
 warp_kernel(const T* __restrict__ X, long long x_batch_stride, const T* __restrict__ la,
             long long la_stride, const T* __restrict__ lb, long long lb_stride,
             T* __restrict__ out, T* __restrict__ pdf, long long n, int d, int width,
-            int run_rows, long long runs) {
-  const int rows_per_pass = blockDim.x / width;
-  const int j = blockIdx.y * width + threadIdx.x % width;
-  const int r0 = threadIdx.x / width;
-  if (j >= d) return;  // the last column group's threads past d
+            long long run_rows, long long runs) {
+  __shared__ Column<T> cols[kMaxWidth];
+  __shared__ Pair<T> coef[kTerms * kMaxWidth];
   const long long b = blockIdx.x / runs;
+  const int j0 = blockIdx.y * width;
+  build_tables(la + b * la_stride, lb + b * lb_stride, j0, width, d, cols, coef);
+  const int c = threadIdx.x % width;
+  const int j = j0 + c;
+  if (j >= d) return;  // the last column group's threads past d
+  const int rows_per_pass = blockDim.x / width;
   const long long first = (blockIdx.x - b * runs) * run_rows;
   const long long last = min(first + run_rows, n);
-  const Column<T> c = column(la[b * la_stride + j], lb[b * lb_stride + j]);
+  const Column<T> col = cols[c];
   const T* xb = X + b * x_batch_stride;
   T* ob = out + b * n * d;
   T* pb = pdf == nullptr ? nullptr : pdf + b * n * d;
-  for (long long i = first + r0; i < last; i += rows_per_pass) {
-    const long long e = i * d + j;
-    const T x = clamp01(xb[e]);
-    ob[e] = beta_cdf(c, x);
-    if (pb != nullptr) pb[e] = beta_pdf(c, x);
+  for (long long i0 = first + threadIdx.x / width; i0 < last;
+       i0 += (long long)R * rows_per_pass) {
+    T x[R], cdf[R], lx[R], l1x[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const long long i = i0 + (long long)r * rows_per_pass;
+      x[r] = i < last ? clamp01(xb[i * d + j]) : T(0);
+    }
+    beta_cdf<T, R>(col, coef + c, x, cdf, lx, l1x);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const long long i = i0 + (long long)r * rows_per_pass;
+      if (i >= last) break;
+      ob[i * d + j] = cdf[r];
+      if (pb != nullptr)
+        pb[i * d + j] =
+            Fn<T>::exp((col.a - T(1)) * lx[r] + (col.b - T(1)) * l1x[r] - col.betaln);
+    }
   }
 }
 
-// K7. One warp per entry (b, i, j), entries in row-major order.
-template <typename T>
-__global__ void __launch_bounds__(kUnwarpWarps * 32)
+// K7. The blocks and threads of K6 over Z; each of a thread's R entries
+// bisects on its own bracket, the R CDFs of a step taken together.
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads)
 unwarp_kernel(const T* __restrict__ Z, long long z_batch_stride, const T* __restrict__ la,
               long long la_stride, const T* __restrict__ lb, long long lb_stride,
-              T* __restrict__ out, long long n, int d, long long entries, int rounds) {
-  const long long e = (long long)blockIdx.x * kUnwarpWarps + threadIdx.x / 32;
-  if (e >= entries) return;  // uniform across the warp
-  const int lane = threadIdx.x % 32;
-  const long long nd = n * d;
-  const long long b = e / nd;
-  const long long r = e - b * nd;
-  const int j = (int)(r % d);
-  const Column<T> c = column(la[b * la_stride + j], lb[b * lb_stride + j]);
-  const T z = clamp01(Z[b * z_batch_stride + r]);
-  const T step1 = T(lane + 1) / T(kWays);   // exact: k / 64
-  const T step2 = T(lane + 33) / T(kWays);
-  T lo = T(0);
-  T width = T(1);
-  for (int round = 0; round < rounds; ++round) {
-    const bool below1 = beta_cdf(c, lo + width * step1) < z;
-    const bool below2 = lane < kWays - 33 && beta_cdf(c, lo + width * step2) < z;
-    const int count = __popc(__ballot_sync(kFull, below1)) + __popc(__ballot_sync(kFull, below2));
-    lo = lo + T(count) * (width / T(kWays));
-    width = width / T(kWays);
+              T* __restrict__ out, long long n, int d, int width, long long run_rows,
+              long long runs, int steps) {
+  __shared__ Column<T> cols[kMaxWidth];
+  __shared__ Pair<T> coef[kTerms * kMaxWidth];
+  const long long b = blockIdx.x / runs;
+  const int j0 = blockIdx.y * width;
+  build_tables(la + b * la_stride, lb + b * lb_stride, j0, width, d, cols, coef);
+  const int c = threadIdx.x % width;
+  const int j = j0 + c;
+  if (j >= d) return;
+  const int rows_per_pass = blockDim.x / width;
+  const long long first = (blockIdx.x - b * runs) * run_rows;
+  const long long last = min(first + run_rows, n);
+  const Column<T> col = cols[c];
+  const T* zb = Z + b * z_batch_stride;
+  T* ob = out + b * n * d;
+  for (long long i0 = first + threadIdx.x / width; i0 < last;
+       i0 += (long long)R * rows_per_pass) {
+    T z[R], lo[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const long long i = i0 + (long long)r * rows_per_pass;
+      z[r] = i < last ? clamp01(zb[i * d + j]) : T(0);
+      lo[r] = T(0);
+    }
+    T w = T(1);
+    for (int s = 0; s < steps; ++s) {
+      w = w * T(0.5);  // exact
+      T mid[R], cdf[R], lx[R], l1x[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) mid[r] = lo[r] + w;
+      beta_cdf<T, R>(col, coef + c, mid, cdf, lx, l1x);
+#pragma unroll
+      for (int r = 0; r < R; ++r) lo[r] = cdf[r] < z[r] ? mid[r] : lo[r];
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const long long i = i0 + (long long)r * rows_per_pass;
+      if (i >= last) break;
+      ob[i * d + j] = lo[r] + T(0.5) * w;
+    }
   }
-  if (lane == 0) out[e] = lo + T(0.5) * width;
+}
+
+// The launch plan of both kernels for R entries a thread: column groups of
+// at most kMaxWidth columns (as even as d allows), rows_per_pass rows of a
+// group a pass (a full block, or fewer where full blocks would give fewer
+// than 2 an SM), and runs of passes: ~8 blocks an SM, at most 64 passes a
+// block (its tables serve its passes).
+struct Plan {
+  int width, groups, rows_per_pass;
+  long long run_rows, runs;
+};
+
+inline Plan plan_for(int B, long long n, int d, int R) {
+  Plan p;
+  p.groups = (d + kMaxWidth - 1) / kMaxWidth;
+  p.width = (d + p.groups - 1) / p.groups;
+  p.rows_per_pass = kThreads / p.width;
+  const long long rows = (long long)B * p.groups * n;
+  const long long fill = (rows + 2LL * kSMs * R - 1) / (2LL * kSMs * R);
+  if (fill < p.rows_per_pass) p.rows_per_pass = fill < 1 ? 1 : (int)fill;
+  const long long pass_rows = (long long)p.rows_per_pass * R;
+  const long long want = kSMs * 8LL;
+  long long passes = ((long long)B * p.groups * ((n + pass_rows - 1) / pass_rows) + want - 1)
+                     / want;
+  passes = passes < 1 ? 1 : (passes > 64 ? 64 : passes);
+  p.run_rows = passes * pass_rows;
+  p.runs = (n + p.run_rows - 1) / p.run_rows;
+  return p;
+}
+
+inline bool plan_fits(int B, const Plan& p) {
+  return (long long)B * p.runs <= 0x7fffffffLL && p.groups <= 65535;
 }
 
 template <typename T>
@@ -213,22 +369,24 @@ int launch_warp(const T* X, long long x_batch_stride, const T* la, long long la_
                 void* stream) {
   if (B < 0 || n < 0 || d < 1) return (int)cudaErrorInvalidValue;
   if (B == 0 || n == 0) return (int)cudaSuccess;
-  const int width = d < kWarpThreads ? d : kWarpThreads;
-  const int groups = (d + width - 1) / width;
-  const int rows_per_pass = kWarpThreads / width;
-  // passes per block: enough blocks to give each of 132 SMs ~8 of them,
-  // at most 64 passes (a thread's column constants serve its passes)
-  const long long want = 132LL * 8;
-  long long passes = ((long long)B * groups * ((n + rows_per_pass - 1) / rows_per_pass) + want - 1)
-                     / want;
-  passes = passes < 1 ? 1 : (passes > 64 ? 64 : passes);
-  const long long run_rows = passes * rows_per_pass;
-  const long long runs = (n + run_rows - 1) / run_rows;
-  if (B * runs > 0x7fffffffLL || groups > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(B * runs), groups);
-  warp_kernel<T><<<grid, rows_per_pass * width, 0, (cudaStream_t)stream>>>(
-      X, x_batch_stride, la, la_stride, lb, lb_stride, out, pdf, n, d, width, (int)run_rows,
-      runs);
+  const Plan p = plan_for(B, n, d, kK6Entries);
+  if (!plan_fits(B, p)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(B * p.runs), p.groups);
+  warp_kernel<T, kK6Entries><<<grid, p.rows_per_pass * p.width, 0, (cudaStream_t)stream>>>(
+      X, x_batch_stride, la, la_stride, lb, lb_stride, out, pdf, n, d, p.width, p.run_rows,
+      p.runs);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int R>
+int launch_unwarp_r(const T* Z, long long z_batch_stride, const T* la, long long la_stride,
+                    const T* lb, long long lb_stride, T* out, int B, long long n, int d,
+                    int steps, const Plan& p, cudaStream_t stream) {
+  if (!plan_fits(B, p)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(B * p.runs), p.groups);
+  unwarp_kernel<T, R><<<grid, p.rows_per_pass * p.width, 0, stream>>>(
+      Z, z_batch_stride, la, la_stride, lb, lb_stride, out, n, d, p.width, p.run_rows, p.runs,
+      steps);
   return (int)cudaGetLastError();
 }
 
@@ -236,14 +394,20 @@ template <typename T>
 int launch_unwarp(const T* Z, long long z_batch_stride, const T* la, long long la_stride,
                   const T* lb, long long lb_stride, T* out, int B, long long n, int d,
                   int rounds, void* stream) {
-  if (B < 0 || n < 0 || d < 1 || rounds < 0) return (int)cudaErrorInvalidValue;
-  const long long entries = (long long)B * n * d;
-  if (entries == 0) return (int)cudaSuccess;
-  const long long blocks = (entries + kUnwarpWarps - 1) / kUnwarpWarps;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  unwarp_kernel<T><<<(unsigned)blocks, kUnwarpWarps * 32, 0, (cudaStream_t)stream>>>(
-      Z, z_batch_stride, la, la_stride, lb, lb_stride, out, n, d, entries, rounds);
-  return (int)cudaGetLastError();
+  if (B < 0 || n < 0 || d < 1 || rounds < 0 || rounds > 0x7fffffff / 6)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || n == 0) return (int)cudaSuccess;
+  // kK7Entries entries a thread where full blocks of them still give 2
+  // blocks an SM (the plan keeps its blocks whole); one where the grid is
+  // smaller (there the card waits on latency, and more threads with one
+  // entry each finish sooner)
+  const Plan wide = plan_for(B, n, d, kK7Entries);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (wide.rows_per_pass == kThreads / wide.width)
+    return launch_unwarp_r<T, kK7Entries>(Z, z_batch_stride, la, la_stride, lb, lb_stride, out,
+                                         B, n, d, 6 * rounds, wide, s);
+  return launch_unwarp_r<T, 1>(Z, z_batch_stride, la, la_stride, lb, lb_stride, out, B, n, d,
+                               6 * rounds, plan_for(B, n, d, 1), s);
 }
 
 }  // namespace
@@ -267,7 +431,7 @@ extern "C" int bask_warp_f64(const double* X, long long x_batch_stride, const do
 }
 
 // K7. Z and the log-parameters as K6's X and log-parameters; out
-// contiguous (B, n, d); rounds = ceil(n_iter / 6).
+// contiguous (B, n, d); rounds = ceil(n_iter / 6), 6 bisection steps each.
 extern "C" int bask_unwarp_f32(const float* Z, long long z_batch_stride, const float* la,
                                long long la_stride, const float* lb, long long lb_stride,
                                float* out, int B, long long n, int d, int rounds, void* stream) {

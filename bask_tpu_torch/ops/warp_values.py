@@ -10,10 +10,15 @@ incomplete beta function of the clamped inputs column by column,
 for X shared (n, d) or one per row (B, n, d) and log-parameters (d,) or
 (B, d); with ``with_pdf`` the same pass also writes the Beta pdf at the
 clamped x, the derivative JAX's ``betainc`` has in x. K7 computes
-``models.warping.unwarp``'s function, the Beta PPF by ``ceil(n_iter / 6)``
-rounds of a 64-way search. Their plain versions, here beside them, are
-:func:`warp_plain` (:func:`betainc` of the clamped inputs),
-:func:`beta_pdf_plain` and :func:`unwarp_plain`.
+``models.warping.unwarp``'s function, the Beta PPF: ``6 * rounds_for(n_iter)``
+bisection steps on [0, 1], the midpoint of the last bracket. Their plain
+versions, here beside them, are :func:`warp_plain` (:func:`betainc` of
+the clamped inputs), :func:`beta_pdf_plain` and :func:`unwarp_plain`, a
+64-way search (63 probes a round, ``rounds_for(n_iter)`` rounds) that
+reaches the same bracket. K7's bisection is not that search bit for bit:
+where rounding makes the CDF non-monotone the two may part by a bracket,
+so K7 is held to the float64 root within a limit (``chip_smoke.py``
+phase 15, ``tests/test_torch_cuda.py``).
 
 The route, in one place: :func:`warp_values` and :func:`unwarp_values`
 run the plain versions on a CPU tensor and launch their kernel once on a
@@ -38,20 +43,25 @@ per continued-fraction term, and its unwarp runs that on 63 probes at
 once, 10 times.
 
 What bounds them on an H100: operations. The counts that define their
-bounds are what the function needs, not what the kernels spend (a
-division, a log or an exp counted as one). :data:`CDF_OPERATIONS` per
-Beta CDF: the 48 continued-fraction coefficients depend on the column's
-(a, b) and the side of the flip only, so with them made once per column
-a term is 3 operations (the coefficient times x, the division, the add),
-and 16 around them (the flip, 1 - x, the front's logs, products, sums
-and exp, the division by the fraction, the flip back).
-:func:`k6_operations` adds the clamp (2) and, with the pdf, 5 more per
-entry (from the CDF's logs: two products, two sums, the exp).
-:func:`k7_operations` counts the bisection that reaches the same
-bracket: 6 steps a round (one 64-way round resolves what 6 bisections
-of a monotone CDF do), each a CDF and 3 (the midpoint, the comparison,
-the update). K6 spends the plain version's ~10 operations a term and K7
-63 CDFs a round: the designs' own counts are ~3x and ~10x these.
+bounds are what the function needs (a division, a log or an exp counted
+as one). :data:`CDF_OPERATIONS` per Beta CDF: the 48 continued-fraction
+coefficients depend on the column's (a, b) and the side of the flip only,
+so with them made once per column a term is 3 operations (the
+coefficient times x, the division, the add), and 16 around them (the
+flip, 1 - x, the front's logs, products, sums and exp, the division by
+the fraction, the flip back). :func:`k6_operations` adds the clamp (2)
+and, with the pdf, 5 more per entry (from the CDF's logs: two products,
+two sums, the exp). :func:`k7_operations` counts the bisection: 6 steps
+a round, each a CDF and 3 (the midpoint, the comparison, the update).
+
+What the kernels do about it (``csrc/warp.cu``): each block makes its row's
+coefficients once, for its group of at most 32 columns and both sides of
+the flip, in shared memory; a term then costs an entry a multiply and an
+FMA on the pair (P, Q) whose ratio is the fraction's tail, and no
+division (one at the end); a thread carries several entries of its
+column through the fraction at once (K6 4, K7 2, or 1 on a grid too small
+to fill the card), one shared load of a term's pair serving them all.
+K7 runs one thread per entry, 60 CDFs an entry by default.
 """
 
 from __future__ import annotations
@@ -287,12 +297,15 @@ def _launch_warp(X, log_alphas, log_betas, with_pdf=False):
 
 
 def unwarp_values(Z, log_alphas, log_betas, n_iter: int = 60):
-    """K7: ``warping.unwarp``'s function (the Beta PPF by
-    :func:`rounds_for` ``(n_iter)`` rounds of a 64-way search), of the
-    plain version's broadcast shape, in Z's type (float32 or float64).
+    """K7: ``warping.unwarp``'s function, the Beta PPF, of the plain
+    version's broadcast shape, in Z's type (float32 or float64).
 
-    A CPU tensor runs the plain version (:func:`unwarp_plain`); a CUDA
-    tensor launches the kernel once (and raises if it cannot).
+    A CPU tensor runs the plain version (:func:`unwarp_plain`: a 64-way
+    search, :func:`rounds_for` ``(n_iter)`` rounds of 63 probes); a CUDA
+    tensor launches the kernel once (and raises if it cannot): one thread
+    per entry bisects ``6 * rounds_for(n_iter)`` times to the same bracket,
+    held to the float64 root within a limit, not to the search bit for
+    bit.
     ``unwarp_values.launches`` counts the launches."""
     if not Z.is_cuda:
         return unwarp_plain(Z, log_alphas, log_betas, n_iter)

@@ -178,7 +178,9 @@ Phases, each printing one result line:
    operations of a replay, in those phases' report lines. Phases 7 and 13
    check that K6 and K7 launched (phase 13 adds one warm tell of the
    warped model, (h), and checks that the warped replay runs K6). (a)
-   runs after phase 11, with the other kernel phases; (b) last.
+   runs after phase 11, with the other kernel phases, and (b) right after
+   it; (c), last, profiles (b)'s ask and grid again at the end of the run,
+   where a session may miss the grid's operations (PERF.md section 7).
 
 The ``launches`` of the kernel table sum phases 7-15, each counted from 0
 just before the phase drives its path and read just after it; a replayed
@@ -3511,16 +3513,9 @@ def phase_warped_batch_ask(dev):
         per_step[f"ask {i + 1}"] = _since(before)
     launches = _counts()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    # a profiled ask (after a warm-up ask; neither counted), the grid and
-    # the top-k apart
-    ops, wall_s = _uncounted(lambda: _profiled_retry(lambda: opt.ask(n_points=BATCH_K)))
-    by_name = {}
-    for e in ops:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    ask_profile = {"device_ops": len(ops), "device_us": sum(by_name.values()),
-                   "wall_us": 1e6 * wall_s, "busy_share": sum(by_name.values()) / (1e6 * wall_s),
-                   "top_kernels_us": [[k[:60], v] for k, v in top]}
+    # a profiled ask and grid (neither counted), the grid and the top-k
+    # timed apart
+    ask_profile = _uncounted(lambda: _ask_profile(opt))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cand = _uncounted(opt._candidate_grid)
@@ -3578,7 +3573,43 @@ def phase_warped_batch_ask(dev):
     if failed:
         raise AssertionError(f"warped batch-ask phase failed: {failed}")
     return launches, {"cold_tell_s": cold_s, "ask_s": ask_s, "peak_mem_gb": peak_gb,
-                      "ask_profile": ask_profile}
+                      "ask_profile": ask_profile}, opt
+
+
+def phase_late_ask_profile(opt):
+    """15 (c): phase 15 (b)'s warped ask and grid profiled again at the end
+    of the run: a profiler session late in this long process can miss the
+    device operations of the grid, K7 and its copies (PERF.md section 7),
+    which a session early in it records. Nothing counted; reports only."""
+    report("phase 15 (c) warped ask profiled late", **_uncounted(lambda: _ask_profile(opt)))
+
+
+def _warp_events(ops, prefix):
+    """The device microseconds of each K7 and K6 launch a profiler session
+    recorded, and its first 6 device operations in time order (name, us),
+    under keys that start with ``prefix``."""
+    first = sorted(ops, key=lambda e: e.time_range.start)[:6]
+    return {f"{prefix}k7_us": [e.device_time for e in ops if "unwarp_kernel" in e.name],
+            f"{prefix}k6_us": [e.device_time for e in ops if "::warp_kernel" in e.name],
+            f"{prefix}first_ops": [[e.name[:40], e.device_time] for e in first]}
+
+
+def _ask_profile(opt):
+    """A profiled ``ask(n_points=BATCH_K)`` of the warped Optimizer ``opt``
+    (after a warm-up ask): its device operations and time, the busy share,
+    the top kernels, and each K7 and K6 launch it recorded; then the
+    candidate grid alone (K7 on NumPy uniforms with its copies to and from
+    the card) profiled the same way."""
+    ops, wall_s = _profiled_retry(lambda: opt.ask(n_points=BATCH_K))
+    by_name = {}
+    for e in ops:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    _, grid_ops = profiled(opt._candidate_grid)
+    return {"device_ops": len(ops), "device_us": sum(by_name.values()),
+            "wall_us": 1e6 * wall_s, "busy_share": sum(by_name.values()) / (1e6 * wall_s),
+            "top_kernels_us": [[k[:60], v] for k, v in top], **_warp_events(ops, ""),
+            "grid_device_ops": len(grid_ops), **_warp_events(grid_ops, "grid: ")}
 
 
 def _warp_row(cases, main_shape):
@@ -3624,9 +3655,13 @@ def main() -> int:
     # phase 15 (a), K6 and K7 alone, profiles many short launches: it runs
     # here too, before the fits
     warp_alone = timed("15 (a)", phase_warp_kernels, dev)
+    # and 15 (b), the warped batch ask, whose profiled ask should record
+    # its grid's K7 (15 (c) profiles it again at the end)
+    by_path = {}
+    by_path["phase 15 warped batch ask"], _, warped_batch = timed(
+        "15 (b)", phase_warped_batch_ask, dev)
     timed("5", phase_lml, dev)
     opt = timed("6", phase_optimizer, dev)
-    by_path = {}
     by_path["phase 7 warped tell"], warped_opt, _ = timed(
         "7", phase_warped_optimizer, dev)
     by_path["phase 8 batch ask"], k1_batch, k4_batch, k3_batch, k5, batch_gp = timed(
@@ -3637,7 +3672,7 @@ def main() -> int:
     by_path["phase 12 meshes"], k3_rows = timed("12", phase_mesh, dev)
     by_path["phase 13 graphed chains"], chains = timed("13", phase_tooling, opt, warped_opt, dev)
     by_path["phase 14 factorization routes"] = timed("14", phase_switches, opt, batch_gp, dev)
-    by_path["phase 15 warped batch ask"], warped_ask = timed("15 (b)", phase_warped_batch_ask, dev)
+    timed("15 (c)", phase_late_ask_profile, warped_batch)
     report("phase seconds", **seconds, total=sum(seconds.values()))
 
     def launches(key):

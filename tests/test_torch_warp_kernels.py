@@ -2,10 +2,11 @@
 CPU can run: the autograd Function the card's warp goes through, built
 around the plain forward, against ``jax.grad`` of
 ``bask_tpu.models.warping.warp`` at x64 and against ``warping.warp_grad``;
-its refusal of a gradient in the log-parameters on the kernel route; a
-NumPy model of K7's round (lanes, ballots, the vote count, the lo and
-width update) bit for bit against ``warping.unwarp``; the kernels'
-argument layouts (broadcast shapes, batch and row strides) through an
+its refusal of a gradient in the log-parameters on the kernel route;
+NumPy models of the kernels' arithmetic in their type (K6's coefficient
+table, division-free fraction and shared logs; K7's bisection) within
+the smoke's limits of the float64 plain versions, and the fraction's
+exponent range; the kernels' argument layouts (broadcast shapes, batch and row strides) through an
 emulation of their indexing; the chunk rule of the pathwise draws on
 both routes; and the route rule (CPU tensors take the plain versions and
 never touch the kernel library). The kernels themselves run on the card
@@ -28,6 +29,8 @@ from bask_tpu_torch.models import warping as twp  # noqa: E402
 from bask_tpu_torch.ops import _cuda  # noqa: E402
 from bask_tpu_torch.ops import warp_values as wv  # noqa: E402
 from bask_tpu_torch.ops.gram import FusedSpec  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
 
 # x-gradients of the Function against JAX's and warp_grad: relative, for
 # float64 pdfs up to ~1e6 near the ends
@@ -143,56 +146,182 @@ def test_kernel_route_takes_the_function_only_for_a_gradient_in_x(kernel_route):
     assert kernel_route == [("K6", True), ("K6", False), ("K7", 30)]
 
 
+# -- NumPy models of the kernels' arithmetic (csrc/warp.cu), in the
+# kernel's type, with no FMA contraction (the card contracts the term's
+# multiply-add; the limits below hold either way) --
+
+
+def _column(la, lb, dt):
+    """A column's constants as the kernels make them, in type ``dt``:
+    (a, b, flip point, betaln, log a, log b)."""
+    a, b = np.exp(la.astype(dt)), np.exp(lb.astype(dt))
+    flip_at = (a + dt(1)) / (a + b + dt(2))
+
+    def lgamma(v):
+        return torch.lgamma(torch.from_numpy(np.asarray(v, dt))).numpy()
+
+    return a, b, flip_at, lgamma(a) + lgamma(b) - lgamma(a + b), np.log(a), np.log(b)
+
+
+def _coefficients(aa, bb, dt):
+    """The table of one side of the flip, (48, d): c_k with d_k = c_k xx,
+    made once per column."""
+    out = []
+    for k in range(1, wv.CF_TERMS + 1):
+        m = dt(k // 2)
+        num = -(aa + m) * ((aa + bb) + m) if k & 1 else m * (bb - m)
+        ak = aa + dt(k)
+        out.append(num / ((ak - dt(1)) * ak))
+    return np.stack(out)
+
+
+def _model_cdf(col, table, x, exponents=None):
+    """K6's CDF at x in [0, 1] (and the pdf from the same logs): the flip,
+    the front from log x and log1p(-x), and the fraction from the tail as
+    (P, Q) <- (P + (c_k xx) Q, P), divided once. ``exponents`` collects
+    the largest |log2| of P and Q over the terms."""
+    a, b, flip_at, betaln, log_a, log_b = col
+    dt = x.dtype.type
+    flip = x > flip_at
+    xx = np.where(flip, dt(1) - x, x)
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        lx, l1x = np.log(x), np.log1p(-x)
+        log_front = a * lx + b * l1x - betaln - np.where(flip, log_b, log_a)
+        P, Q = np.ones_like(x), np.ones_like(x)
+        for k in range(wv.CF_TERMS - 1, -1, -1):
+            t = np.where(flip, table[1][k], table[0][k]) * xx
+            P, Q = P + t * Q, P
+            if exponents is not None:
+                live = np.abs(P[(P != 0) & np.isfinite(P)])
+                exponents.append(float(np.abs(np.log2(live)).max(initial=0.0)))
+        front = np.exp(log_front) * (Q / P)
+        pdf = np.exp((a - dt(1)) * lx + (b - dt(1)) * l1x - betaln)
+    return np.where(flip, dt(1) - front, front), pdf
+
+
+def _model_parts(la, lb, dt):
+    col = _column(la, lb, dt)
+    a, b = col[0], col[1]
+    return col, (_coefficients(a, b, dt), _coefficients(b, a, dt))
+
+
+def _k6_model(X, la, lb, exponents=None):
+    """K6 in NumPy: (warp, pdf) of X (n, d) under one (a, b) per column,
+    in X's type."""
+    dt = X.dtype.type
+    col, table = _model_parts(la, lb, dt)
+    x = np.where(X < 0, dt(0), np.where(X > 1, dt(1), X))  # NaN stays
+    return _model_cdf(col, table, x, exponents)
+
+
 def _k7_model(Z, la, lb, n_iter):
-    """K7's search modelled in NumPy: 32 lanes per entry, lane l voting on
-    probes k = l + 1 and (l < 31) k = l + 33 at ``lo + width * (k / 64)``
-    in the tensor's type, a ballot per probe set, the count by popcount,
-    ``lo += count * (width / 64)``, ``width /= 64``; the result ``lo +
-    width / 2``. The CDF at the probes is ``warping.betainc``'s, taken on
-    a (63, *Z.shape) tensor as the plain version lays its probes out (so
-    every element sees the same vector loop)."""
+    """K7 in NumPy: ``6 * rounds_for(n_iter)`` bisection steps (w halved,
+    mid = lo + w, lo = mid where the CDF there lies below z), then the
+    last bracket's midpoint."""
     dt = Z.dtype.type
-    a, b = wv.ab(torch.from_numpy(la), torch.from_numpy(lb))
-    z = np.clip(Z, dt(0), dt(1))
-    lo = np.zeros_like(z)
-    width = dt(1)
-    lanes = np.arange(32)
-    for _ in range(-(-n_iter // 6)):
-        k = np.arange(1, 64, dtype=Z.dtype) / dt(64)
-        probes = lo[None] + width * k.reshape((-1,) + (1,) * z.ndim)
-        cdf = wv.betainc(a, b, torch.from_numpy(probes)).numpy()
-        below = cdf < z[None]  # (63, ...): probe k - 1
-        ballot1 = np.zeros(z.shape, np.uint64)
-        ballot2 = np.zeros(z.shape, np.uint64)
-        for lane in lanes:
-            ballot1 |= below[lane].astype(np.uint64) << np.uint64(lane)
-            if lane < 31:
-                ballot2 |= below[lane + 32].astype(np.uint64) << np.uint64(lane)
-        count = np.zeros(z.shape, np.int64)
-        for ballot in (ballot1, ballot2):
-            count += np.array([bin(int(v)).count("1") for v in ballot.ravel()]).reshape(z.shape)
-        lo = lo + count.astype(Z.dtype) * (width / dt(64))
-        width = width / dt(64)
-    return lo + dt(0.5) * width
+    col, table = _model_parts(la, lb, dt)
+    z = np.where(Z < 0, dt(0), np.where(Z > 1, dt(1), Z))
+    lo, w = np.zeros_like(z), dt(1)
+    for _ in range(6 * wv.rounds_for(n_iter)):
+        w = dt(w * dt(0.5))
+        mid = lo + w
+        lo = np.where(_model_cdf(col, table, mid)[0] < z, mid, lo)
+    return lo + dt(0.5) * w
+
+
+def _ends(A, values):
+    """A with its first entries set to ``values`` (in place) and A back."""
+    A.reshape(-1)[: len(values)] = values
+    return A
+
+
+_AT_THE_ENDS = [0.0, 1e-12, 1e-7, 1.0 - 1e-7, 1.0 - 1e-12, 1.0, -0.25, 1.25, -0.0, 1e-30]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", ["prior range", "ends and NaN"])
+def test_k6_model_within_the_smoke_limits(dtype, case):
+    """The model of K6's new arithmetic (coefficient table, the
+    division-free fraction, the shared logs, the pdf) against the float64
+    plain version within the smoke's WARP_TOL and PDF_RTOL, on (a, b) over
+    the warp prior's 5-sigma range, the inputs rounded to the type as the
+    smoke rounds them; x inside, at, near and past the ends, and NaN, which
+    stays NaN in the warp and the pdf."""
+    rng = np.random.RandomState(10)
+    X = rng.uniform(size=(400, 32))
+    if case == "ends and NaN":
+        X = _ends(X, _AT_THE_ENDS * 3 + [np.nan])
+    X = X.astype(dtype)
+    la, lb = (rng.uniform(-1.5, 1.5, 32).astype(dtype) for _ in range(2))
+    out, pdf = _k6_model(X, la, lb)
+    assert out.dtype == pdf.dtype == dtype
+    X64, la64, lb64 = (torch.from_numpy(v.astype(np.float64)) for v in (X, la, lb))
+    ref = wv.warp_plain(X64, la64, lb64).numpy()
+    pdf_ref = wv.beta_pdf_plain(X64, la64, lb64).numpy()
+    nan = np.isnan(X)
+    assert np.isnan(out[nan]).all() and np.isnan(pdf[nan]).all()
+    assert np.isnan(ref[nan]).all()
+    key = dtype.__name__
+    assert np.abs(out[~nan] - ref[~nan]).max() <= cs.WARP_TOL[key]
+    ok = np.isfinite(pdf_ref) & (pdf_ref > 1e-30)
+    assert np.abs((pdf[ok] - pdf_ref[ok]) / pdf_ref[ok]).max() <= cs.PDF_RTOL[key]
+    # the ends: 0 and 1 exactly, as the plain version
+    assert (out[X <= 0] == 0).all() and (out[X >= 1] == 1).all()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_k6_model_fraction_stays_in_the_exponent_range(dtype):
+    """Over a, b in [0.01, 100] (beyond the prior's range) and x over [0, 1]
+    on both sides of the flip, P and Q of the division-free fraction stay
+    far inside float32's exponent range (|log2| <= 80 of its 127), so the
+    kernels need no rescaling; the warp stays finite, in [0, 1], and within
+    the float64 plain version's own truncation there."""
+    grid = np.linspace(np.log(0.01), np.log(100.0), 25)
+    la, lb = (v.ravel() for v in np.meshgrid(grid, grid))
+    x = np.concatenate([[0.0, 1e-30, 1e-7, 1.0 - 1e-7, 1.0], np.linspace(0.0, 1.0, 201)])
+    X = np.repeat(x[:, None], la.size, axis=1).astype(dtype)
+    exponents = []
+    out, _ = _k6_model(X, la.astype(dtype), lb.astype(dtype), exponents)
+    assert max(exponents) <= 80
+    assert np.isfinite(out).all() and (out >= 0).all() and (out <= 1).all()
+    X64, la64, lb64 = (torch.from_numpy(v.astype(dtype).astype(np.float64)) for v in (X, la, lb))
+    ref = wv.warp_plain(X64, la64, lb64).numpy()
+    # float64: 2e-11, the plain fraction's own bound against scipy there
+    # (tests/test_torch_warping.py); float32: its rounding over the range
+    assert np.abs(out - ref).max() <= (1e-4 if dtype == np.float32 else 2e-11)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("n_iter", [6, 60, 61])
-def test_k7_round_model_is_unwarp_bit_for_bit(dtype, n_iter):
-    """The model of K7's round equals warping.unwarp (the plain version, a
-    CPU tensor) bit for bit, at both types and 1, 10 and 11 rounds, on z
-    inside, at and past the ends and NaN, with (a, b) in the prior's
-    5-sigma range."""
-    rng = np.random.RandomState(4)
-    Z = rng.uniform(size=(40, 5)).astype(dtype)
-    Z[0] = [0.0, 1.0, 1e-7, 1.0 - 1e-7, np.nan]
-    Z[1] = [-0.5, 1.5, 0.5, 1e-30, 0.999999]
-    la, lb = (rng.uniform(-1.5, 1.5, 5).astype(dtype) for _ in range(2))
-    ours = twp.unwarp(torch.from_numpy(Z), torch.from_numpy(la), torch.from_numpy(lb),
-                      n_iter=n_iter).numpy()
-    model = _k7_model(Z, la, lb, n_iter)
-    assert ours.dtype == model.dtype == dtype
-    np.testing.assert_array_equal(ours.view(np.uint8), model.view(np.uint8))
+def test_k7_model_within_the_smoke_limit(dtype, n_iter):
+    """The model of K7's bisection (one entry's steps, on the model of K6's
+    CDF) against the float64 plain search (``warping.unwarp`` on float64
+    tensors) at 1, 10 and 11 rounds, on z inside, at, near and past the
+    ends and NaN, with (a, b) over the prior's 5-sigma range: within the
+    smoke's rule (``chip_smoke.unwarp_share``: x within UNWARP_TOL of the
+    root or its float64 CDF within WARP_TOL of z) at 10 and 11 rounds;
+    within its 2^-6 bracket of the float64 search at one round; a NaN z
+    gives the plain version's lo + width / 2 from lo = 0."""
+    rng = np.random.RandomState(11)
+    Z = _ends(rng.uniform(size=(160, 15)), _AT_THE_ENDS + [np.nan]).astype(dtype)
+    la, lb = (rng.uniform(-1.5, 1.5, 15).astype(dtype) for _ in range(2))
+    x = _k7_model(Z, la, lb, n_iter)
+    assert x.dtype == dtype
+    Z64, la64, lb64 = (torch.from_numpy(v.astype(np.float64)) for v in (Z, la, lb))
+    nan = np.isnan(Z)
+    plain = wv.unwarp_plain(torch.from_numpy(Z), torch.from_numpy(la), torch.from_numpy(lb),
+                            n_iter).numpy()
+    np.testing.assert_array_equal(x[nan], plain[nan])
+    ref = wv.unwarp_plain(Z64, la64, lb64, n_iter)
+    keep = torch.from_numpy(~nan)
+    xt = torch.from_numpy(x.astype(np.float64))
+    if n_iter <= 6:
+        assert float((xt - ref)[keep].abs().max()) <= 2.0 ** -6
+        return
+    share = cs.unwarp_share(xt[keep], ref[keep], Z64[keep],
+                            la64.expand(Z.shape)[keep], lb64.expand(Z.shape)[keep],
+                            dtype.__name__)
+    assert share <= 1.0, share
 
 
 def _emulate(layout, fn):
