@@ -43,6 +43,7 @@ import torch
 
 from .models import gp as gpc
 from .ops.linalg import augmented_quadform
+from .utils import trace
 from .utils.stats import norm_cdf, norm_logcdf, norm_pdf
 
 # "on" routes a tell's single acquisition through
@@ -227,9 +228,10 @@ def _thompson_probes(kernel, theta, post, data, Xw, z, white_idx):
     itself for ``z=None`` (VarianceReduction)."""
     if z is None:
         return Xw
-    theta_nf = gpc.noise_free_theta(kernel, theta, white_idx)
-    ts = gpc.sample_y(kernel, theta_nf, post, data, Xw, z)
-    return Xw[torch.argmin(ts, dim=0)]
+    with trace.span("span.acq.probes"):
+        theta_nf = gpc.noise_free_theta(kernel, theta, white_idx)
+        ts = gpc.sample_y(kernel, theta_nf, post, data, Xw, z)
+        return Xw[torch.argmin(ts, dim=0)]
 
 
 class VarianceReduction(FullGPAcquisition):
@@ -242,7 +244,8 @@ class VarianceReduction(FullGPAcquisition):
             gp._spec, gp._tensor(gp._theta), gp._post, gp._post_data,
             gp._warp_tensor(gp._tensor(X)), None, gp.white_index_,
         )
-        return vals.cpu().numpy()
+        with trace.wait():
+            return vals.cpu().numpy()
 
 
 class PVRS(FullGPAcquisition):
@@ -258,7 +261,8 @@ class PVRS(FullGPAcquisition):
             gp._spec, gp._tensor(gp._theta), gp._post, gp._post_data, Xw, z,
             gp.white_index_,
         )
-        return vals.cpu().numpy()
+        with trace.wait():
+            return vals.cpu().numpy()
 
 
 def _draw_posteriors(rows, data, X, kernel, white_idx, n_real, n_warp):
@@ -362,7 +366,8 @@ def _marginal_values(X, gpr, acqs, n_samples, rs, kwargs, mesh=None):
             out.append(None)
             continue
         vals = _fused_marginal_vals(*args, acq, kw, gpr._n_warp(), z, mesh=mesh)
-        out.append(vals.cpu().numpy())
+        with trace.wait():
+            out.append(vals.cpu().numpy())
     return out
 
 
@@ -395,23 +400,24 @@ def evaluate_acquisitions_fused(X, gpr, acq, n_samples: int = 10, random_state=N
     splits the candidate grid of an uncertainty acquisition over its
     entries for the predictions; the values equal the unsharded ones.
     """
-    if FUSED_ACQUISITION != "on":
-        return None
-    X = np.atleast_2d(np.asarray(X, dtype=float))
-    rs = _rng(random_state)
-    out = np.zeros((1, X.shape[0]))
-    if isinstance(acq, FullGPAcquisition):
-        vals = acq(X, gpr, random_state=rs, **kwargs)
-        if np.all(np.isfinite(vals)):
-            out[0] = vals
+    with trace.span("span.acq.fused"):
+        if FUSED_ACQUISITION != "on":
+            return None
+        X = np.atleast_2d(np.asarray(X, dtype=float))
+        rs = _rng(random_state)
+        out = np.zeros((1, X.shape[0]))
+        if isinstance(acq, FullGPAcquisition):
+            vals = acq(X, gpr, random_state=rs, **kwargs)
+            if np.all(np.isfinite(vals)):
+                out[0] = vals
+            return out
+        if not isinstance(acq, (UncertaintyAcquisition, SampleAcquisition)):
+            return None
+        if n_samples <= 0:
+            return out
+        (vals,) = _marginal_values(X, gpr, (acq,), n_samples, rs, kwargs, mesh=mesh)
+        out[0] += _finite_mean(vals, n_samples)
         return out
-    if not isinstance(acq, (UncertaintyAcquisition, SampleAcquisition)):
-        return None
-    if n_samples <= 0:
-        return out
-    (vals,) = _marginal_values(X, gpr, (acq,), n_samples, rs, kwargs, mesh=mesh)
-    out[0] += _finite_mean(vals, n_samples)
-    return out
 
 
 @torch.no_grad()

@@ -71,6 +71,7 @@ from ..ops.linalg import batched_lml, cho_solve_masked, masked_cholesky, masked_
 from ..parallel.mcmc import (
     _MOVE_PARAMS, ChainGraph, _normalize_moves, flatten_chain, run_ensemble,
 )
+from ..utils import trace
 from ..utils.median import geometric_median
 from ..utils.priors import guess_priors
 from ..utils.validation import validate_zeroone
@@ -232,7 +233,9 @@ def _log_post_value_grad(data, x0, kernel, priors, n_warp):
     with torch.enable_grad():
         v = -scalar(x0g)
         (g,) = torch.autograd.grad(v, x0g)
-    return float(v.detach()), g.detach().cpu().double().numpy()
+    with trace.wait():
+        v, g = float(v.detach()), g.detach().cpu()
+    return v, g.double().numpy()
 
 
 def _log_post_hessian(data, x0, kernel, priors, n_warp):
@@ -722,7 +725,9 @@ class BayesGPR:
         return None if self._spec is None else bk.white_theta_index(self._spec)
 
     def _tensor(self, x):
-        return torch.as_tensor(np.asarray(x), dtype=self.dtype, device=self.device)
+        a = np.asarray(x)
+        with trace.wait():  # an upload from host memory waits for the stream
+            return torch.as_tensor(a, dtype=self.dtype, device=self.device)
 
     # -- data management ---------------------------------------------------
 
@@ -850,81 +855,83 @@ class BayesGPR:
         (``row_grad_method``), except on a subsample, which takes the
         dense path, and ``"map"`` falls back to the bare LML with a
         warning, as in the JAX package."""
-        kernel, data = self._spec, self._data
-        bounds = kernel.bounds
-        row_cfg = self._row_cfg()
-        n = self._X_orig.shape[0]
-        if self.ml2_subsample is not None and n > self.ml2_subsample:
-            row_cfg = None
-            idx = np.sort(self.random_state.choice(n, size=self.ml2_subsample, replace=False))
-            noise_rows = self._noise_rows()
-            data = self._build_padded_data(
-                self._X_orig[idx], self._y_orig[idx],
-                None if noise_rows is None else noise_rows[idx],
-            )
-        objective = self.ml2_objective
-        if objective == "map" and row_cfg is not None:
-            warnings.warn(
-                "ml2_objective='map' runs on the dense warm-start path "
-                "(its value+grad program materializes the padded gram); "
-                "set ml2_subsample to use it in row mode — falling back "
-                "to the bare-LML objective for this fit.",
-                UserWarning,
-            )
-            objective = "lml"
-        # the bare LML is the log posterior under no priors
-        priors = self._resolve_priors(None) if objective == "map" else ()
-        starts = [kernel.theta0]
-        for _ in range(self.n_restarts_optimizer):
-            starts.append(self.random_state.uniform(bounds[:, 0], bounds[:, 1]))
-
-        if self.optimizer == "lbfgs-device" and objective == "map":
-            warnings.warn(
-                "ml2_objective='map' is implemented on the host L-BFGS-B "
-                "optimizer only; ignoring optimizer='lbfgs-device' for this fit.",
-                UserWarning,
-            )
-        elif self.optimizer == "lbfgs-device":
-            if np.isfinite(bounds).all() and (bounds[:, 1] > bounds[:, 0]).all():
-                best = _ml2_device(
-                    self._tensor(np.stack(starts)), data, self._tensor(bounds[:, 0]),
-                    self._tensor(bounds[:, 1]), kernel, row_cfg=row_cfg,
-                    grad_method=self.row_grad_method,
+        with trace.span("span.gp.ml2"):
+            kernel, data = self._spec, self._data
+            bounds = kernel.bounds
+            row_cfg = self._row_cfg()
+            n = self._X_orig.shape[0]
+            if self.ml2_subsample is not None and n > self.ml2_subsample:
+                row_cfg = None
+                idx = np.sort(self.random_state.choice(n, size=self.ml2_subsample, replace=False))
+                noise_rows = self._noise_rows()
+                data = self._build_padded_data(
+                    self._X_orig[idx], self._y_orig[idx],
+                    None if noise_rows is None else noise_rows[idx],
                 )
-                return best.cpu().double().numpy()
-            # the sigmoid reparameterization needs finite, non-degenerate
-            # bounds; L-BFGS-B handles both
-            warnings.warn(
-                "optimizer='lbfgs-device' requires finite, non-degenerate "
-                "hyperparameter bounds; falling back to the host L-BFGS-B "
-                "optimizer for this fit.",
-                UserWarning,
-            )
+            objective = self.ml2_objective
+            if objective == "map" and row_cfg is not None:
+                warnings.warn(
+                    "ml2_objective='map' runs on the dense warm-start path "
+                    "(its value+grad program materializes the padded gram); "
+                    "set ml2_subsample to use it in row mode — falling back "
+                    "to the bare-LML objective for this fit.",
+                    UserWarning,
+                )
+                objective = "lml"
+            # the bare LML is the log posterior under no priors
+            priors = self._resolve_priors(None) if objective == "map" else ()
+            starts = [kernel.theta0]
+            for _ in range(self.n_restarts_optimizer):
+                starts.append(self.random_state.uniform(bounds[:, 0], bounds[:, 1]))
 
-        from scipy.optimize import minimize
+            if self.optimizer == "lbfgs-device" and objective == "map":
+                warnings.warn(
+                    "ml2_objective='map' is implemented on the host L-BFGS-B "
+                    "optimizer only; ignoring optimizer='lbfgs-device' for this fit.",
+                    UserWarning,
+                )
+            elif self.optimizer == "lbfgs-device":
+                if np.isfinite(bounds).all() and (bounds[:, 1] > bounds[:, 0]).all():
+                    best = _ml2_device(
+                        self._tensor(np.stack(starts)), data, self._tensor(bounds[:, 0]),
+                        self._tensor(bounds[:, 1]), kernel, row_cfg=row_cfg,
+                        grad_method=self.row_grad_method,
+                    )
+                    return best.cpu().double().numpy()
+                # the sigmoid reparameterization needs finite, non-degenerate
+                # bounds; L-BFGS-B handles both
+                warnings.warn(
+                    "optimizer='lbfgs-device' requires finite, non-degenerate "
+                    "hyperparameter bounds; falling back to the host L-BFGS-B "
+                    "optimizer for this fit.",
+                    UserWarning,
+                )
 
-        row_vg = (None if row_cfg is None
-                  else _row_neg_lml_value_grad(kernel, row_cfg, self.row_grad_method, data))
+            from scipy.optimize import minimize
 
-        def obj(t):
-            if row_vg is not None:
-                v, g = row_vg(self._tensor(t)[None, :])
-                v, g = float(v[0]), g[0].cpu().double().numpy()
-            else:
-                v, g = _log_post_value_grad(data, self._tensor(t), kernel, priors, 0)
-            if not np.isfinite(v):
-                return 1e25, np.zeros_like(t)
-            return v, g
+            row_vg = (None if row_cfg is None
+                      else _row_neg_lml_value_grad(kernel, row_cfg, self.row_grad_method, data))
 
-        best_t, best_v = None, np.inf
-        for t0 in starts:
-            res = minimize(
-                obj, t0, jac=True, method="L-BFGS-B", bounds=bounds,
-                options={"maxiter": 60},
-            )
-            if res.fun < best_v:
-                best_t, best_v = res.x, res.fun
-        return np.asarray(best_t, dtype=float)
+            def obj(t):
+                with trace.span("span.gp.objective"):
+                    if row_vg is not None:
+                        v, g = row_vg(self._tensor(t)[None, :])
+                        v, g = float(v[0]), g[0].cpu().double().numpy()
+                    else:
+                        v, g = _log_post_value_grad(data, self._tensor(t), kernel, priors, 0)
+                if not np.isfinite(v):
+                    return 1e25, np.zeros_like(t)
+                return v, g
+
+            best_t, best_v = None, np.inf
+            for t0 in starts:
+                res = minimize(
+                    obj, t0, jac=True, method="L-BFGS-B", bounds=bounds,
+                    options={"maxiter": 60},
+                )
+                if res.fun < best_v:
+                    best_t, best_v = res.x, res.fun
+            return np.asarray(best_t, dtype=float)
 
     # -- sampling ----------------------------------------------------------
 
@@ -1274,83 +1281,87 @@ class BayesGPR:
 
         if (X is None and self._X_orig is None) or self._spec is None:
             raise ValueError("No data to sample from: pass X and y or call fit first.")
-        if X is not None:
-            self._set_data(X, y, noise_vector)
-        elif noise_vector is not None:
-            self._noise_vector = np.asarray(noise_vector, dtype=float) / self.y_train_std_**2
-            self._upload()
+        with trace.span("span.gp.stage"):
+            if X is not None:
+                self._set_data(X, y, noise_vector)
+            elif noise_vector is not None:
+                self._noise_vector = np.asarray(noise_vector, dtype=float) / self.y_train_std_**2
+                self._upload()
 
-        priors = self._resolve_priors(priors)
-        warp_prior = self._resolve_warp_priors(warp_priors)
-        n_warp = self._n_warp()
-        n_dim = self._spec.n_theta + 2 * n_warp
-        n_walkers = max(2, n_threads * n_walkers_per_thread)
-        n_walkers += n_walkers % 2
-        row_cfg = self._row_cfg()
-        if row_cfg is not None and mesh is not None:
-            raise ValueError(
-                "mesh= and row_mesh are mutually exclusive: use a "
-                "two-axis row_mesh=(walkers, rows) to combine walker "
-                "data-parallelism with row-sharded factorizations."
+            priors = self._resolve_priors(priors)
+            warp_prior = self._resolve_warp_priors(warp_priors)
+            n_warp = self._n_warp()
+            n_dim = self._spec.n_theta + 2 * n_warp
+            n_walkers = max(2, n_threads * n_walkers_per_thread)
+            n_walkers += n_walkers % 2
+            row_cfg = self._row_cfg()
+            if row_cfg is not None and mesh is not None:
+                raise ValueError(
+                    "mesh= and row_mesh are mutually exclusive: use a "
+                    "two-axis row_mesh=(walkers, rows) to combine walker "
+                    "data-parallelism with row-sharded factorizations."
+                )
+            if mesh is not None:
+                # each half-ensemble shards evenly: a multiple of 2 x the mesh size
+                m = 2 * int(np.prod(list(mesh.shape.values())))
+                n_walkers = -(-n_walkers // m) * m
+            if row_cfg is not None and len(self.row_mesh.axis_names) == 2:
+                m = 2 * int(self.row_mesh.shape[self.row_mesh.axis_names[0]])
+                n_walkers = -(-n_walkers // m) * m
+            if position is not None:
+                n_walkers = int(np.asarray(position).shape[0])
+            n_steps = int(math.ceil(n_desired_samples / n_walkers)) + n_burnin
+            if len(range(n_burnin + n_thin - 1, n_steps, n_thin)) < 1:
+                raise ValueError(
+                    f"Retained chain would be empty: n_desired_samples="
+                    f"{n_desired_samples} with {n_walkers} walkers gives "
+                    f"{n_steps - n_burnin} post-burnin step(s) and thin={n_thin} "
+                    "keeps none of them."
+                )
+
+            if position is not None:
+                pos = np.asarray(position, dtype=float)
+            elif self.pos_ is not None and self.pos_.shape == (n_walkers, n_dim):
+                pos = self.pos_
+            else:
+                theta = np.copy(self._theta)
+                bad = ~np.isfinite(theta)
+                if bad.any():
+                    usable = self.noise_ and np.isfinite(self.noise_) and self.noise_ > 0
+                    theta[bad] = math.log(self.noise_) if usable else -10.0
+                # warp dimensions start at the identity warp, log a = log b = 0
+                theta = np.concatenate([theta, np.zeros(2 * n_warp)])
+                ci = self.chain_init if chain_init is None else chain_init
+                if ci not in ("ball", "laplace"):
+                    raise ValueError(f"chain_init must be 'ball' or 'laplace', got {ci!r}")
+                pos = None
+                # row mode keeps the ball: the Laplace Hessian is a dense
+                # (n, n) factorization, what row mode exists to avoid
+                if ci == "laplace" and row_cfg is None:
+                    pos = self._laplace_positions(theta, n_walkers, priors, n_warp)
+                if pos is None:
+                    pos = theta[None, :] + 1e-2 * self.random_state.randn(n_walkers, n_dim)
+            seed = int(self.random_state.randint(0, 2**31 - 1))
+
+            moves = _canonical_moves(moves) if moves is not None else self.moves
+            if moves == "auto":
+                w = pos.shape[0]
+                moves = _MOVE_ALIASES["demix"] if w >= 6 else (("de", 1.0),) if w >= 4 else None
+
+            log_prob = _make_log_prob_batch(
+                self._spec, priors, self._data, len(self._y_orig), warp_prior, n_warp,
+                mesh=mesh, row_cfg=row_cfg,
             )
-        if mesh is not None:
-            # each half-ensemble shards evenly: a multiple of 2 x the mesh size
-            m = 2 * int(np.prod(list(mesh.shape.values())))
-            n_walkers = -(-n_walkers // m) * m
-        if row_cfg is not None and len(self.row_mesh.axis_names) == 2:
-            m = 2 * int(self.row_mesh.shape[self.row_mesh.axis_names[0]])
-            n_walkers = -(-n_walkers // m) * m
-        if position is not None:
-            n_walkers = int(np.asarray(position).shape[0])
-        n_steps = int(math.ceil(n_desired_samples / n_walkers)) + n_burnin
-        if len(range(n_burnin + n_thin - 1, n_steps, n_thin)) < 1:
-            raise ValueError(
-                f"Retained chain would be empty: n_desired_samples="
-                f"{n_desired_samples} with {n_walkers} walkers gives "
-                f"{n_steps - n_burnin} post-burnin step(s) and thin={n_thin} "
-                "keeps none of them."
-            )
-
-        if position is not None:
-            pos = np.asarray(position, dtype=float)
-        elif self.pos_ is not None and self.pos_.shape == (n_walkers, n_dim):
-            pos = self.pos_
-        else:
-            theta = np.copy(self._theta)
-            bad = ~np.isfinite(theta)
-            if bad.any():
-                usable = self.noise_ and np.isfinite(self.noise_) and self.noise_ > 0
-                theta[bad] = math.log(self.noise_) if usable else -10.0
-            # warp dimensions start at the identity warp, log a = log b = 0
-            theta = np.concatenate([theta, np.zeros(2 * n_warp)])
-            ci = self.chain_init if chain_init is None else chain_init
-            if ci not in ("ball", "laplace"):
-                raise ValueError(f"chain_init must be 'ball' or 'laplace', got {ci!r}")
-            pos = None
-            # row mode keeps the ball: the Laplace Hessian is a dense
-            # (n, n) factorization, what row mode exists to avoid
-            if ci == "laplace" and row_cfg is None:
-                pos = self._laplace_positions(theta, n_walkers, priors, n_warp)
-            if pos is None:
-                pos = theta[None, :] + 1e-2 * self.random_state.randn(n_walkers, n_dim)
-        seed = int(self.random_state.randint(0, 2**31 - 1))
-
-        moves = _canonical_moves(moves) if moves is not None else self.moves
-        if moves == "auto":
-            w = pos.shape[0]
-            moves = _MOVE_ALIASES["demix"] if w >= 6 else (("de", 1.0),) if w >= 4 else None
-
-        log_prob = _make_log_prob_batch(
-            self._spec, priors, self._data, len(self._y_orig), warp_prior, n_warp,
-            mesh=mesh, row_cfg=row_cfg,
-        )
+            pos0 = self._tensor(pos)
+            graph = self._chain_graph(priors, warp_prior, n_warp, mesh, row_cfg)
         chain_dev, final = run_ensemble(
-            log_prob, self._tensor(pos), seed, n_steps,
-            a=float(kwargs.get("a", 2.0)), moves=moves, progress=progress,
-            graph=self._chain_graph(priors, warp_prior, n_warp, mesh, row_cfg),
+            log_prob, pos0, seed, n_steps, a=float(kwargs.get("a", 2.0)), moves=moves,
+            progress=progress, graph=graph,
         )
         flat = flatten_chain(chain_dev, discard=n_burnin, thin=n_thin)
-        kept_steps = chain_dev[n_burnin + n_thin - 1 :: n_thin].cpu().numpy()
+        kept_dev = chain_dev[n_burnin + n_thin - 1 :: n_thin]
+        with trace.wait():
+            kept_steps = kept_dev.cpu().numpy()
         homogeneous_add = False
         if add and self.chain_ is not None:
             if (
@@ -1362,20 +1373,25 @@ class BayesGPR:
                 self.chain_steps_ = np.concatenate([self.chain_steps_, kept_steps])
                 self.chain_ = self.chain_steps_.reshape(-1, kept_steps.shape[-1])
             else:
-                self.chain_ = np.concatenate([self.chain_, flat.cpu().numpy()])
+                with trace.wait():
+                    flat_host = flat.cpu().numpy()
+                self.chain_ = np.concatenate([self.chain_, flat_host])
                 self.chain_steps_ = kept_steps
             flat = self._tensor(self.chain_)
         else:
             self.chain_steps_ = kept_steps
             self.chain_ = kept_steps.reshape(-1, kept_steps.shape[-1])
-        self.pos_ = final.pos.cpu().numpy()
+        with trace.wait():
+            self.pos_ = final.pos.cpu().numpy()
+        with trace.wait():
+            accepted = int(final.accepted)
         _maybe_warn_rhat(self.chain_steps_, warn_rhat)
         w_act = self.chain_steps_.shape[1]
         if homogeneous_add and self.n_proposals_:
-            self.n_accepted_ += int(final.accepted)
+            self.n_accepted_ += accepted
             self.n_proposals_ += n_steps * w_act
         else:
-            self.n_accepted_ = int(final.accepted)
+            self.n_accepted_ = accepted
             self.n_proposals_ = n_steps * w_act
         if _consensus:
             self._set_consensus_from_flat(flat)
@@ -1385,18 +1401,23 @@ class BayesGPR:
         """Geometric-median consensus over a flat (device) chain: the
         median splits into theta and the warp parameters, then the
         posterior and the consensus LML are refreshed on the warped data."""
-        median = geometric_median(flat).cpu().double().numpy()
-        n_gp, n_warp = self._spec.n_theta, self._n_warp()
-        if n_warp:
-            self.warp_alphas_ = median[n_gp : n_gp + n_warp]
-            self.warp_betas_ = median[n_gp + n_warp :]
-        self._theta = median[:n_gp]
-        widx = self.white_index_
-        if widx is not None:
-            self.noise_ = float(np.exp(self._theta[widx]))
-        self._refresh_posterior()
-        self.log_marginal_likelihood_value_ = float(self._consensus_lml_)
-        return self
+        with trace.span("span.gp.consensus"):
+            median = geometric_median(flat)
+            with trace.wait():
+                median = median.cpu()
+            median = median.double().numpy()
+            n_gp, n_warp = self._spec.n_theta, self._n_warp()
+            if n_warp:
+                self.warp_alphas_ = median[n_gp : n_gp + n_warp]
+                self.warp_betas_ = median[n_gp + n_warp :]
+            self._theta = median[:n_gp]
+            widx = self.white_index_
+            if widx is not None:
+                self.noise_ = float(np.exp(self._theta[widx]))
+            self._refresh_posterior()
+            with trace.wait():
+                self.log_marginal_likelihood_value_ = float(self._consensus_lml_)
+            return self
 
     def fit(
         self,
@@ -1416,29 +1437,30 @@ class BayesGPR:
         """ML-II warm start (kernel theta at the identity warp; theta0
         with ``optimizer=None``), then hyperposterior sampling (with a
         progress bar by default, as in the JAX package)."""
-        if self.noise == "gaussian" and bk.white_theta_index(self._user_kernel) is None:
-            self._spec = self._user_kernel + bk.WhiteKernel(1.0, (1e-5, 1e5))
-        else:
-            self._spec = self._user_kernel
-        self._priors_cache = None
-        self._set_data(X, y, noise_vector)
-        theta_ml = self._ml2_optimize() if self.optimizer is not None else self._spec.theta0
-        self._theta = theta_ml
-        widx = self.white_index_
-        if widx is not None:
-            self.noise_ = float(np.exp(theta_ml[widx]))
-        return self.sample(
-            n_threads=n_threads,
-            n_desired_samples=n_desired_samples,
-            n_burnin=n_burnin,
-            n_walkers_per_thread=n_walkers_per_thread,
-            progress=progress,
-            priors=priors,
-            warp_priors=warp_priors,
-            position=position,
-            add=False,
-            **kwargs,
-        )
+        with trace.span("span.gp.fit"):
+            if self.noise == "gaussian" and bk.white_theta_index(self._user_kernel) is None:
+                self._spec = self._user_kernel + bk.WhiteKernel(1.0, (1e-5, 1e5))
+            else:
+                self._spec = self._user_kernel
+            self._priors_cache = None
+            self._set_data(X, y, noise_vector)
+            theta_ml = self._ml2_optimize() if self.optimizer is not None else self._spec.theta0
+            self._theta = theta_ml
+            widx = self.white_index_
+            if widx is not None:
+                self.noise_ = float(np.exp(theta_ml[widx]))
+            return self.sample(
+                n_threads=n_threads,
+                n_desired_samples=n_desired_samples,
+                n_burnin=n_burnin,
+                n_walkers_per_thread=n_walkers_per_thread,
+                progress=progress,
+                priors=priors,
+                warp_priors=warp_priors,
+                position=position,
+                add=False,
+                **kwargs,
+            )
 
     def mcmc_diagnostics(self, c: float = 5.0) -> dict:
         """Convergence diagnostics of the kept chain: per-dimension split

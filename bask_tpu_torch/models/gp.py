@@ -16,6 +16,7 @@ import torch
 
 from ..ops.gram import fused_masked_gram_batch, fused_spec_for
 from ..ops.linalg import _use_fast_path, cho_solve_masked, masked_cholesky, masked_gram
+from ..utils import trace
 
 __all__ = [
     "GPData",
@@ -53,7 +54,8 @@ class GPPosterior(NamedTuple):
 
 
 def make_data(X, y, alpha_diag, mask, y_mean=0.0, y_std=1.0) -> GPData:
-    mask = torch.as_tensor(mask, dtype=torch.bool, device=X.device)
+    with trace.wait():  # an upload waits for the stream
+        mask = torch.as_tensor(mask, dtype=torch.bool, device=X.device)
     return GPData(
         X=X,
         y=torch.where(mask, y, 0.0),
@@ -137,7 +139,8 @@ def noise_free_theta(kernel, theta, white_index: Optional[int]):
     if white_index is None:
         return theta
     theta = theta.clone()
-    theta[..., white_index] = -float("inf")
+    with trace.wait():  # a Python scalar written into a device tensor: an upload
+        theta[..., white_index] = -float("inf")
     return theta
 
 
@@ -194,6 +197,7 @@ def eigh_draws(mean, cov, z):
     """mean + V sqrt(max(w, 0)) z from the eigen-decomposition of
     ``cov``: exact for the rank-deficient PSD covariances of dense query
     grids, where a Cholesky would need visible jitter."""
-    evals, evecs = torch.linalg.eigh(cov)
+    with trace.wait():  # eigh reads back its convergence flags
+        evals, evecs = torch.linalg.eigh(cov)
     factor = evecs * torch.sqrt(torch.clamp(evals, min=0.0))[..., None, :]
     return mean[..., :, None] + factor @ z

@@ -9,7 +9,10 @@ optionally polishes the argmax by gradient ascent (``acq_polish``) and
 caches it for the next ``ask``. ``ask(n_points > 1)`` proposes a batch:
 one minimizer per Thompson draw, by pathwise sampling above 2,048
 candidates. ``probability_of_optimality``, ``expected_optimality_gap``
-and ``optimum_intervals`` are the stopping diagnostics.
+and ``optimum_intervals`` are the stopping diagnostics. With tracing on
+(:mod:`bask_tpu_torch.utils.trace`) a tell's refit and acquisition are the
+spans ``span.opt.refit`` and ``span.opt.acquisition``, on the same clock
+readings as ``last_timings_``.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from . import acquisition as acq_mod
 from .models.bayesgpr import BayesGPR
 from .space import normalize_dimensions
+from .utils import trace
 from .utils.init_seq import r2_sequence, sb_sequence
 from .utils.priors import construct_default_kernel
 from .utils.result import create_result, expected_minimum
@@ -156,24 +160,25 @@ class Optimizer:
         """The next point to evaluate: an initial-design point, or the
         acquisition argmax cached by the last ``tell``. ``n_points > 1``
         gives a batch (:meth:`_ask_batch`)."""
-        if n_points > 1:
-            return self._ask_batch(n_points)
-        if self._n_initial_points > 0:
-            if self.init_strategy == "r2":
-                return self._initial_points[self._n_initial_points - 1]
-            if self.init_strategy == "sb":
-                existing = self.space.transform(self.Xi) if len(self.Xi) else None
-                pts = sb_sequence(
-                    n=len(self.Xi) + 1,
-                    d=self.space.transformed_n_dims,
-                    existing_points=existing,
-                    random_state=self._init_rng.randint(2**31),
-                )
-                return self.space.inverse_transform(np.atleast_2d(pts[len(self.Xi)]))[0]
-            return self.space.rvs(random_state=self.rng)[0]
-        if self.gp.kernel_ is None:
-            raise RuntimeError("Initialization is finished, but no model has been fit.")
-        return self._next_x
+        with trace.span("span.opt.ask"):
+            if n_points > 1:
+                return self._ask_batch(n_points)
+            if self._n_initial_points > 0:
+                if self.init_strategy == "r2":
+                    return self._initial_points[self._n_initial_points - 1]
+                if self.init_strategy == "sb":
+                    existing = self.space.transform(self.Xi) if len(self.Xi) else None
+                    pts = sb_sequence(
+                        n=len(self.Xi) + 1,
+                        d=self.space.transformed_n_dims,
+                        existing_points=existing,
+                        random_state=self._init_rng.randint(2**31),
+                    )
+                    return self.space.inverse_transform(np.atleast_2d(pts[len(self.Xi)]))[0]
+                return self.space.rvs(random_state=self.rng)[0]
+            if self.gp.kernel_ is None:
+                raise RuntimeError("Initialization is finished, but no model has been fit.")
+            return self._next_x
 
     def _ask_batch(self, n_points: int):
         """A batch of ``n_points``: during the initial design its next
@@ -240,12 +245,13 @@ class Optimizer:
         input warping, uniform in the warped space and mapped back, so the
         density follows the learned warp (reference
         ``bask/optimizer.py:353-363``)."""
-        if self.gp.warp_inputs:
-            d = self.space.transformed_n_dims
-            return self.gp.unwarp(self.rng.uniform(size=(self.n_points, d)))
-        return self.space.transform(
-            self.space.rvs(n_samples=self.n_points, random_state=self.rng)
-        )
+        with trace.span("span.opt.grid"):
+            if self.gp.warp_inputs:
+                d = self.space.transformed_n_dims
+                return self.gp.unwarp(self.rng.uniform(size=(self.n_points, d)))
+            return self.space.transform(
+                self.space.rvs(n_samples=self.n_points, random_state=self.rng)
+            )
 
     @staticmethod
     def _coerce_observations(x, y, noise_vector):
@@ -281,92 +287,97 @@ class Optimizer:
         """Report objective value(s); past the initial design, refit the GP
         (with a progress bar over the chain if ``progress``) and compute
         the next proposal. Returns a scipy OptimizeResult."""
-        if replace:
-            self.Xi, self.yi, self.noisei = [], [], []
-            self._n_initial_points = self.n_initial_points_
-        xs, ys, ns = self._coerce_observations(x, y, noise_vector)
-        self.Xi += xs
-        self.yi += ys
-        self.noisei += ns
-        self._n_initial_points -= len(ys)
+        with trace.span("span.opt.tell"):
+            if replace:
+                self.Xi, self.yi, self.noisei = [], [], []
+                self._n_initial_points = self.n_initial_points_
+            xs, ys, ns = self._coerce_observations(x, y, noise_vector)
+            self.Xi += xs
+            self.yi += ys
+            self.noisei += ns
+            self._n_initial_points -= len(ys)
 
-        if fit and self._n_initial_points <= 0:
-            if (
-                self.gp_priors is not None
-                and not callable(self.gp_priors)
-                and len(self.gp_priors) != self.space.transformed_n_dims + 2
-            ):
-                raise ValueError(
-                    "The number of priors does not match the number of "
-                    "dimensions + 2."
-                )
-            t_fit = time.perf_counter()
-            with warnings.catch_warnings():
-                warnings.simplefilter("ignore")
-                common = dict(
-                    noise_vector=np.asarray(self.noisei),
-                    priors=self.gp_priors,
-                    n_desired_samples=gp_samples,
-                    n_burnin=gp_burnin,
-                    progress=progress,
-                    mesh=self.mesh,
-                )
-                common.update(self.gp_sample_kwargs)
-                if self.gp.pos_ is None or replace:
-                    # the cold fit samples to R-hat <= 1.1 by default
-                    cold = dict(common)
-                    if "until_rhat" not in cold:
-                        cold["until_rhat"] = 1.1
-                        cold.setdefault("max_extensions", 12)
-                        cold.setdefault("extension_steps", 300)
-                    self.gp.fit(self.space.transform(self.Xi), self.yi, **cold)
-                else:
-                    self.gp.sample(self.space.transform(self.Xi), self.yi, **common)
-            ur = self.gp.until_rhat_result_
-            if ur is not None and not ur["converged"]:
-                warnings.warn(
-                    f"GP refit did not reach R-hat <= {ur['threshold']} within "
-                    f"the extension budget (max split R-hat {ur['rhat']:.3f} "
-                    f"after {ur['steps']} kept steps); proceeding with the "
-                    "consensus estimate.",
-                    UserWarning,
-                    stacklevel=2,
-                )
-            t_acq = time.perf_counter()
-            X = self._candidate_grid()
-            acq_seed = self.rng.randint(0, np.iinfo(np.int32).max)
-            acq_out = acq_mod.evaluate_acquisitions_fused(
-                X=X,
-                gpr=self.gp,
-                acq=self.acq_func,
-                n_samples=n_samples,
-                random_state=acq_seed,
-                mesh=self.mesh,
-                **self.acq_func_kwargs,
-            )
-            if acq_out is None:
-                acq_out = acq_mod.evaluate_acquisitions(
-                    X=X,
-                    gpr=self.gp,
-                    acquisition_functions=(self.acq_func,),
-                    n_samples=n_samples,
-                    random_state=acq_seed,
-                    **self.acq_func_kwargs,
-                )
-            acq_values = acq_out.flatten()
-            best_x_t = X[np.argmax(acq_values)]
-            if self.acq_polish > 0 and not self.space.is_partly_categorical:
-                best_x_t = self._polish(X, acq_values, n_samples, best_x_t)
-            self._next_x = self.space.inverse_transform(best_x_t[None, :])[0]
-            done = time.perf_counter()
-            self.last_timings_ = {
-                "gp_fit_s": t_acq - t_fit,
-                "acquisition_s": done - t_acq,
-                "mcmc_acceptance": (
-                    self.gp.n_accepted_ / self.gp.n_proposals_ if self.gp.n_proposals_ else None
-                ),
-            }
-        return create_result(self.Xi, self.yi, self.space, self.rng, models=[self.gp])
+            if fit and self._n_initial_points <= 0:
+                if (
+                    self.gp_priors is not None
+                    and not callable(self.gp_priors)
+                    and len(self.gp_priors) != self.space.transformed_n_dims + 2
+                ):
+                    raise ValueError(
+                        "The number of priors does not match the number of "
+                        "dimensions + 2."
+                    )
+                t_fit = time.perf_counter_ns()
+                with trace.span("span.opt.refit", t_fit) as refit:
+                    with warnings.catch_warnings():
+                        warnings.simplefilter("ignore")
+                        common = dict(
+                            noise_vector=np.asarray(self.noisei),
+                            priors=self.gp_priors,
+                            n_desired_samples=gp_samples,
+                            n_burnin=gp_burnin,
+                            progress=progress,
+                            mesh=self.mesh,
+                        )
+                        common.update(self.gp_sample_kwargs)
+                        if self.gp.pos_ is None or replace:
+                            # the cold fit samples to R-hat <= 1.1 by default
+                            cold = dict(common)
+                            if "until_rhat" not in cold:
+                                cold["until_rhat"] = 1.1
+                                cold.setdefault("max_extensions", 12)
+                                cold.setdefault("extension_steps", 300)
+                            self.gp.fit(self.space.transform(self.Xi), self.yi, **cold)
+                        else:
+                            self.gp.sample(self.space.transform(self.Xi), self.yi, **common)
+                    ur = self.gp.until_rhat_result_
+                    if ur is not None and not ur["converged"]:
+                        warnings.warn(
+                            f"GP refit did not reach R-hat <= {ur['threshold']} within "
+                            f"the extension budget (max split R-hat {ur['rhat']:.3f} "
+                            f"after {ur['steps']} kept steps); proceeding with the "
+                            "consensus estimate.",
+                            UserWarning,
+                            stacklevel=2,
+                        )
+                    t_acq = time.perf_counter_ns()
+                    refit.end_at(t_acq)
+                with trace.span("span.opt.acquisition", t_acq) as acquisition:
+                    X = self._candidate_grid()
+                    acq_seed = self.rng.randint(0, np.iinfo(np.int32).max)
+                    acq_out = acq_mod.evaluate_acquisitions_fused(
+                        X=X,
+                        gpr=self.gp,
+                        acq=self.acq_func,
+                        n_samples=n_samples,
+                        random_state=acq_seed,
+                        mesh=self.mesh,
+                        **self.acq_func_kwargs,
+                    )
+                    if acq_out is None:
+                        acq_out = acq_mod.evaluate_acquisitions(
+                            X=X,
+                            gpr=self.gp,
+                            acquisition_functions=(self.acq_func,),
+                            n_samples=n_samples,
+                            random_state=acq_seed,
+                            **self.acq_func_kwargs,
+                        )
+                    acq_values = acq_out.flatten()
+                    best_x_t = X[np.argmax(acq_values)]
+                    if self.acq_polish > 0 and not self.space.is_partly_categorical:
+                        best_x_t = self._polish(X, acq_values, n_samples, best_x_t)
+                    self._next_x = self.space.inverse_transform(best_x_t[None, :])[0]
+                    done = time.perf_counter_ns()
+                    acquisition.end_at(done)
+                self.last_timings_ = {
+                    "gp_fit_s": (t_acq - t_fit) / 1e9,
+                    "acquisition_s": (done - t_acq) / 1e9,
+                    "mcmc_acceptance": (
+                        self.gp.n_accepted_ / self.gp.n_proposals_ if self.gp.n_proposals_ else None
+                    ),
+                }
+            return create_result(self.Xi, self.yi, self.space, self.rng, models=[self.gp])
 
     def _polish(self, X, acq_values, n_samples, best_x_t):
         """Adam-polish from the top ``acq_polish_starts`` grid points (the

@@ -43,6 +43,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.progress import get_progress_bar
 
 __all__ = [
@@ -404,33 +405,34 @@ class _ChainEntry:
         """The step of move ``name`` in a graph (:func:`_capture_step`),
         with its draw buffers and its launches per replay. The step leaves
         its result in the state buffers, so replays chain."""
-        specs_of, apply = _move_step(self.log_prob, name, a)
-        specs = specs_of(*self.pos.shape)
-        draws = _draw(torch.Generator(device=self.pos.device).manual_seed(0), specs, self.pos)
-        warm_gen = torch.Generator(device=self.pos.device).manual_seed(1)
+        with trace.span("span.mcmc.capture"):
+            specs_of, apply = _move_step(self.log_prob, name, a)
+            specs = specs_of(*self.pos.shape)
+            draws = _draw(torch.Generator(device=self.pos.device).manual_seed(0), specs, self.pos)
+            warm_gen = torch.Generator(device=self.pos.device).manual_seed(1)
 
-        def body():
-            pos, lp, acc = apply(self.pos, self.lp, draws)
-            self.pos.copy_(pos)
-            self.lp.copy_(lp)
-            self.accepted.add_(acc)
+            def body():
+                pos, lp, acc = apply(self.pos, self.lp, draws)
+                self.pos.copy_(pos)
+                self.lp.copy_(lp)
+                self.accepted.add_(acc)
 
-        def warm():  # throwaway randoms; the state buffers change
-            _draw(warm_gen, specs, self.pos, out=draws)
-            body()
+            def warm():  # throwaway randoms; the state buffers change
+                _draw(warm_gen, specs, self.pos, out=draws)
+                body()
 
-        counters = _launch_counters()
-        try:
-            graph, launches = _capture_step(body, warm, self.pool, self.pos.device, counters)
-        except Exception as e:
-            raise RuntimeError(
-                f"the chain step of move {name!r} could not be captured in a CUDA "
-                f"graph ({type(e).__name__}: {e}); a prior or kernel that syncs with "
-                "the host cannot run in a graph (mcmc.CHAIN_GRAPHS = 'off' runs "
-                "every chain eagerly)"
-            ) from e
-        graph_stats["captures"] += 1
-        return _Branch(graph, specs, draws, launches)
+            counters = _launch_counters()
+            try:
+                graph, launches = _capture_step(body, warm, self.pool, self.pos.device, counters)
+            except Exception as e:
+                raise RuntimeError(
+                    f"the chain step of move {name!r} could not be captured in a CUDA "
+                    f"graph ({type(e).__name__}: {e}); a prior or kernel that syncs with "
+                    "the host cannot run in a graph (mcmc.CHAIN_GRAPHS = 'off' runs "
+                    "every chain eagerly)"
+                ) from e
+            graph_stats["captures"] += 1
+            return _Branch(graph, specs, draws, launches)
 
 
 def _capture_step(body, warm, pool, device, counters):
@@ -480,9 +482,10 @@ def _run_graphed(graph, log_prob_fn, pos0, gen, names, a, move_idx, pbar):
     W, D = pos0.shape
     device = pos0.device
     entry = _chain_entry(graph, W, D, pos0.dtype, device)
-    for buf, src in zip(entry.inputs, graph.inputs):
-        buf.copy_(src)
-    lp0 = log_prob_fn(pos0)
+    with trace.span("span.mcmc.init"):
+        for buf, src in zip(entry.inputs, graph.inputs):
+            buf.copy_(src)
+        lp0 = log_prob_fn(pos0)
     keys = [_branch_key(n, a) for n in names]
     for m in sorted(set(move_idx.tolist())):
         if keys[m] not in entry.branches:
@@ -495,15 +498,16 @@ def _run_graphed(graph, log_prob_fn, pos0, gen, names, a, move_idx, pbar):
     counters = _launch_counters()
     n_steps = len(move_idx)
     chain = torch.empty((n_steps, W, D), dtype=pos0.dtype, device=device)
-    for i in range(n_steps):
-        br = entry.branches[keys[move_idx[i]]]
-        _draw(gen, br.specs, entry.pos, out=br.draws)
-        br.graph.replay()
-        chain[i].copy_(entry.pos)
-        for f, n in zip(counters, br.launches):
-            f.launches += n
-        if (i + 1) % _PROGRESS_CHUNK == 0 or i + 1 == n_steps:
-            pbar.update((i % _PROGRESS_CHUNK) + 1)
+    with trace.span("span.mcmc.replays"):
+        for i in range(n_steps):
+            br = entry.branches[keys[move_idx[i]]]
+            _draw(gen, br.specs, entry.pos, out=br.draws)
+            br.graph.replay()
+            chain[i].copy_(entry.pos)
+            for f, n in zip(counters, br.launches):
+                f.launches += n
+            if (i + 1) % _PROGRESS_CHUNK == 0 or i + 1 == n_steps:
+                pbar.update((i % _PROGRESS_CHUNK) + 1)
     graph_stats["replays"] += n_steps
     pbar.close()
     return chain, EnsembleState(
@@ -532,24 +536,25 @@ def run_ensemble(
     A step that cannot be captured or replayed raises. With
     :data:`CHAIN_GRAPHS` ``"off"`` the graph is ignored.
     """
-    validate_walker_count(pos0.shape[0], moves)
-    names, weights = (("stretch",), (1.0,)) if moves is None else _normalize_moves(moves)
-    move_idx = np.random.RandomState(seed).choice(len(weights), size=n_steps, p=weights)
-    gen = torch.Generator(device=pos0.device)
-    gen.manual_seed(int(seed))
-    pbar = get_progress_bar(progress, n_steps)
-    if graph is not None and CHAIN_GRAPHS == "on":
-        return _run_graphed(graph, log_prob_fn, pos0, gen, names, a, move_idx, pbar)
-    step, _ = make_step_fn(log_prob_fn, a=a, moves=moves)
-    state = init_ensemble(log_prob_fn, pos0)
-    chain = []
-    for i in range(n_steps):
-        state = step(state, int(move_idx[i]), gen)
-        chain.append(state.pos)
-        if (i + 1) % _PROGRESS_CHUNK == 0 or i + 1 == n_steps:
-            pbar.update((i % _PROGRESS_CHUNK) + 1)
-    pbar.close()
-    return torch.stack(chain), state
+    with trace.span("span.mcmc.run"):
+        validate_walker_count(pos0.shape[0], moves)
+        names, weights = (("stretch",), (1.0,)) if moves is None else _normalize_moves(moves)
+        move_idx = np.random.RandomState(seed).choice(len(weights), size=n_steps, p=weights)
+        gen = torch.Generator(device=pos0.device)
+        gen.manual_seed(int(seed))
+        pbar = get_progress_bar(progress, n_steps)
+        if graph is not None and CHAIN_GRAPHS == "on":
+            return _run_graphed(graph, log_prob_fn, pos0, gen, names, a, move_idx, pbar)
+        step, _ = make_step_fn(log_prob_fn, a=a, moves=moves)
+        state = init_ensemble(log_prob_fn, pos0)
+        chain = []
+        for i in range(n_steps):
+            state = step(state, int(move_idx[i]), gen)
+            chain.append(state.pos)
+            if (i + 1) % _PROGRESS_CHUNK == 0 or i + 1 == n_steps:
+                pbar.update((i % _PROGRESS_CHUNK) + 1)
+        pbar.close()
+        return torch.stack(chain), state
 
 
 def flatten_chain(chain, discard: int = 0, thin: int = 1):

@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from . import trace
+
 __all__ = ["geometric_median"]
 
 _CHECK_EVERY = 25
@@ -26,8 +28,11 @@ def geometric_median(X, eps: float = 1e-5, max_iter: int = 200):
     y = X.mean(dim=0)
     delta = torch.full((), math.inf, dtype=X.dtype, device=X.device)
     for it in range(max_iter):
-        if it and it % _CHECK_EVERY == 0 and not bool(delta >= eps):
-            break
+        if it and it % _CHECK_EVERY == 0:
+            with trace.wait():
+                moving = bool(delta >= eps)
+            if not moving:
+                break
         d = torch.linalg.vector_norm(X - y[None, :], dim=1)
         nonzero = d > 0.0
         dinv = torch.where(nonzero, 1.0 / torch.where(nonzero, d, 1.0), 0.0)
