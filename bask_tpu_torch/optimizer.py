@@ -249,8 +249,8 @@ class Optimizer:
             if self.gp.warp_inputs:
                 d = self.space.transformed_n_dims
                 return self.gp.unwarp(self.rng.uniform(size=(self.n_points, d)))
-            return self.space.transform(
-                self.space.rvs(n_samples=self.n_points, random_state=self.rng)
+            return self.space.rvs_transformed(
+                n_samples=self.n_points, random_state=self.rng
             )
 
     @staticmethod

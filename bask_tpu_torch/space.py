@@ -46,6 +46,10 @@ class Dimension:
     def rvs(self, n_samples, random_state):
         raise NotImplementedError
 
+    def rvs_transformed(self, n_samples, random_state):
+        """``transform(rvs(n_samples, random_state))``, with the same draws."""
+        return self.transform(self.rvs(n_samples, random_state))
+
 
 def _check_range(values, low, high, dim):
     """Validate numeric values against the dimension bounds (skopt's
@@ -179,12 +183,21 @@ class Categorical(Dimension):
         idx = np.argmax(arr, axis=1)
         return [self.categories[i] for i in idx]
 
-    def rvs(self, n_samples, random_state):
-        p = self.prior
-        idx = random_state.choice(
-            len(self.categories), size=n_samples, p=p
+    def _draw_indices(self, n_samples, random_state):
+        return random_state.choice(
+            len(self.categories), size=n_samples, p=self.prior
         )
+
+    def rvs(self, n_samples, random_state):
+        idx = self._draw_indices(n_samples, random_state)
         return [self.categories[i] for i in idx]
+
+    def rvs_transformed(self, n_samples, random_state):
+        # one-hot rows from the drawn indices; a category equal to an
+        # earlier one takes that one's column, as ``transform`` gives it
+        first = np.array([self.categories.index(c) for c in self.categories])
+        idx = first[self._draw_indices(n_samples, random_state)]
+        return np.eye(len(self.categories))[idx]
 
     def __repr__(self):
         return f"Categorical({self.categories}, name={self.name!r})"
@@ -240,14 +253,10 @@ class Space:
 
     def transform(self, points):
         points = list(points)
-        cols = []
-        for j, dim in enumerate(self.dimensions):
-            vals = [p[j] for p in points]
-            t = dim.transform(vals)
-            if t.ndim == 1:
-                t = t[:, None]
-            cols.append(t)
-        return np.concatenate(cols, axis=1)
+        return _stack_columns(
+            dim.transform([p[j] for p in points])
+            for j, dim in enumerate(self.dimensions)
+        )
 
     def inverse_transform(self, arr):
         arr = np.atleast_2d(np.asarray(arr, dtype=float))
@@ -276,8 +285,27 @@ class Space:
             for i in range(n_samples)
         ]
 
+    def rvs_transformed(self, n_samples=1, random_state=None):
+        """``transform(rvs(n_samples, random_state))`` as one float64
+        ``(n_samples, transformed_n_dims)`` array: the same draws in the
+        same order, each dimension's column drawn and transformed as an
+        array, with no per-point object."""
+        if not isinstance(random_state, np.random.RandomState):
+            random_state = np.random.RandomState(random_state)
+        return _stack_columns(
+            dim.rvs_transformed(n_samples, random_state)
+            for dim in self.dimensions
+        )
+
     def __repr__(self):
         return f"Space({self.dimensions})"
+
+
+def _stack_columns(blocks):
+    """Join per-dimension transformed blocks ((n,) or (n, w)) into (n, D)."""
+    return np.concatenate(
+        [t[:, None] if t.ndim == 1 else t for t in blocks], axis=1
+    )
 
 
 def normalize_dimensions(dimensions) -> Space:
