@@ -34,19 +34,27 @@ import torch
 from .reference import gp as ref
 from .reference import priors
 
-# what the reference models of the options a configuration hands the program
+# what the reference models of the options a configuration hands the
+# program, in every loop's check; a loop's ``MODELS`` names what its own
+# check models beyond this
 MODELLED = {"gp_kwargs": {"normalize_y"}, "optimizer_kwargs": {"n_points"},
             "kernel": {"amplitude", "amplitude_bounds", "lengthscale", "lengthscale_bounds", "nu",
                        "noise", "noise_bounds"}}
+NU_MODELLED = (0.5, 1.5, 2.5)  # the Matern orders of ``reference.gp.matern``
 
 
-def modelled(cfg: dict):
-    """Raise where the configuration hands the program an option that the
-    reference does not model: its answers would be judged against another
-    model's."""
-    extra = {k: sorted(set(cfg.get(k, {})) - keys) for k, keys in MODELLED.items()}
+def modelled(cfg: dict, models: dict = None):
+    """Raise where the configuration hands the program an option that
+    neither :data:`MODELLED` nor ``models`` (the loop's ``MODELS``: group
+    -> option names) names: its answers would be judged against another
+    model's. A Matern order outside :data:`NU_MODELLED` is refused unless
+    ``models`` names ``kernel.nu``."""
+    models = models or {}
+    extra = {k: sorted(set(cfg.get(k, {})) - MODELLED.get(k, set()) - set(models.get(k, ())))
+             for k in MODELLED.keys() | models.keys()}
     extra = {k: v for k, v in extra.items() if v}
-    if extra or cfg["kernel"]["nu"] not in (0.5, 1.5, 2.5):
+    any_nu = "nu" in models.get("kernel", ())
+    if extra or not (any_nu or cfg["kernel"]["nu"] in NU_MODELLED):
         raise ValueError(f"the reference does not model {extra or cfg['kernel']['nu']}: "
                          "a loop whose check models it has to judge this configuration")
 

@@ -11,10 +11,10 @@ The windows drive public entry points of ``bask_tpu_torch`` only. Two
 kinds of pass-through wrappers sit on internal entries: recorders, in
 every run, that keep a checked unit's intermediate outputs (the chain's
 start and end, the candidate grid with the acquisition's values and its
-probes, the draws' inputs and the values of the checked draws), and, in a
-traced run only, spans with a device synchronize at both edges and notes
-of the shapes with which the program launched the kernels whose rooflines
-are read.
+probes, the draws' inputs and the values of the checked draws, a warped
+grid's uniforms), and, in a traced run only, spans with a device
+synchronize at both edges and notes of the shapes with which the program
+launched the kernels whose rooflines are read.
 """
 
 from __future__ import annotations
@@ -161,6 +161,32 @@ def note_k5(stack, tracer, n_real: int):
                                query=X is not None)
         return original(nu, Xq, omega, phase, W, coef, X, *args, **kwargs)
     stack.enter_context(wrapped(pathwise, "pathwise_values", around))
+
+
+def note_warps(stack, tracer):
+    """In a traced run, note the shape of every K6 launch (the input warp:
+    B warps of n rows of d columns, X shared or one per warp) and K7
+    launch (its inverse: n rows to a bracket of 2^-``n_iter``), at the
+    entries that launch them on the card."""
+    if tracer is None:
+        return
+    import torch
+
+    from bask_tpu_torch.ops import warp_values
+
+    def k6(original, X, log_alphas, log_betas, with_pdf=False):
+        batch = torch.broadcast_shapes(X.shape[:-2], log_alphas.shape[:-1])
+        tracer.note_launch("K6", B=int(torch.Size(batch).numel()), n=int(X.shape[-2]),
+                           d=int(X.shape[-1]), shared=X.ndim == 2, pdf=bool(with_pdf),
+                           itemsize=X.element_size())
+        return original(X, log_alphas, log_betas, with_pdf)
+
+    def k7(original, Z, log_alphas, log_betas, n_iter=60):
+        tracer.note_launch("K7", n=int(Z.shape[-2]), d=int(Z.shape[-1]), n_iter=int(n_iter),
+                           itemsize=Z.element_size())
+        return original(Z, log_alphas, log_betas, n_iter)
+    stack.enter_context(wrapped(warp_values, "_launch_warp", k6))
+    stack.enter_context(wrapped(warp_values, "_launch_unwarp", k7))
 
 
 def bowl(X, rng, noise):

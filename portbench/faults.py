@@ -31,4 +31,50 @@ def chain_half_stuck():
         mcmc._accept = original
 
 
-FAULTS = {"chain_half_stuck": chain_half_stuck}
+@contextlib.contextmanager
+def draw_consensus_warp():
+    """Each pathwise draw of an ask warps the training points and the grid
+    by the consensus warp, not by its own chain row's."""
+    from bask_tpu_torch.models import warping
+    from bask_tpu_torch.models.bayesgpr import BayesGPR
+
+    split, ask = warping.split_warp_params, BayesGPR.thompson_argmin_pathwise
+    consensus = []
+
+    def shared_split(x, n_dims):
+        theta, la, lb = split(x, n_dims)
+        if consensus:
+            la_c, lb_c = consensus[-1]
+            la, lb = la_c.to(la).expand_as(la), lb_c.to(lb).expand_as(lb)
+        return theta, la, lb
+
+    def draws(self, *args, **kwargs):
+        consensus.append(self._warp_params())
+        try:
+            return ask(self, *args, **kwargs)
+        finally:
+            consensus.pop()
+
+    warping.split_warp_params, BayesGPR.thompson_argmin_pathwise = shared_split, draws
+    try:
+        yield
+    finally:
+        warping.split_warp_params, BayesGPR.thompson_argmin_pathwise = split, ask
+
+
+@contextlib.contextmanager
+def grid_not_unwarped():
+    """The warped candidate grid is handed on as drawn, uniform in the
+    warped space: its inverse warp returns its input."""
+    from bask_tpu_torch.models.bayesgpr import BayesGPR
+
+    unwarp = BayesGPR.unwarp
+    BayesGPR.unwarp = lambda self, X: X
+    try:
+        yield
+    finally:
+        BayesGPR.unwarp = unwarp
+
+
+FAULTS = {"chain_half_stuck": chain_half_stuck, "draw_consensus_warp": draw_consensus_warp,
+          "grid_not_unwarped": grid_not_unwarped}

@@ -3,6 +3,11 @@ configuration's ``n`` points fitted in set-up (then one discarded ask):
 one Thompson draw per point over a fresh candidate grid. The checked
 draws (drawn from the seed) keep their values through the draws' ``keep``
 argument in every ask, so every ask does the same work.
+
+With ``gp_kwargs.warp_inputs`` each chain row carries a Beta-CDF warp of
+the inputs, the grid is drawn uniform in the consensus-warped space and
+mapped back (K7), and each draw warps the training points and the grid by
+its own row's warp (K6) before its gram and its values.
 """
 
 from __future__ import annotations
@@ -15,8 +20,13 @@ import numpy as np
 import torch
 
 from .. import checks, core
-from ..common import Recorder, bowl, inside, note_k5, optimizer, report_failure, spans, wrapped
+from ..common import (Recorder, bowl, inside, note_k5, note_warps, optimizer, report_failure,
+                      spans, wrapped)
 from ..reference import gp as ref
+from ..reference import warp as ref_warp
+
+# what this loop's check models beyond checks.MODELLED: the input warp
+MODELS = {"gp_kwargs": {"warp_inputs"}}
 
 
 def run(run) -> dict:
@@ -46,6 +56,11 @@ def run(run) -> dict:
                     rand={f: None if r is None else r[draws] for f, r in rand._asdict().items()})
         return idx
 
+    def keep_uniforms(original, gp, Z):  # the warped grid's draw, before K7 maps it back
+        if rec.active:
+            rec.put(uniforms=Z)  # a fresh array the program does not change: no copy
+        return original(gp, Z)
+
     def time_grid(original, *args, **kwargs):  # host work alone: no synchronize needed
         t0 = time.perf_counter()
         out = original(*args, **kwargs)
@@ -54,7 +69,9 @@ def run(run) -> dict:
 
     with contextlib.ExitStack() as stack:
         stack.enter_context(wrapped(pathwise, "pathwise_topk_hyper", keep_draws))
+        stack.enter_context(wrapped(BayesGPR, "unwarp", keep_uniforms))
         note_k5(stack, run.tracer, n)
+        note_warps(stack, run.tracer)
         spans(stack, run.tracer, [(Optimizer, "_candidate_grid", "grid"),
                                   (BayesGPR, "thompson_argmin_pathwise", "draws")])
         stack.enter_context(wrapped(Optimizer, "_candidate_grid", time_grid))
@@ -84,7 +101,7 @@ def run(run) -> dict:
         window.close()
     return dict(
         attempted=i, failed=len(failures), state=opt,
-        records=dict(X=X, y=y, asks=records),
+        records=dict(X=X, y=y, asks=records, chain=np.array(opt.gp.chain_, dtype=float)),
         metrics={"batch_ask_s": window.length / max(i - len(failures), 1)},
         info={"asks": i, "window_s": window.length, "checked_units": [r["unit"] for r in records],
               "checked_draws": draws, "ask_s": ask_s, "grid_s": grid_s},
@@ -96,24 +113,45 @@ def numbers(records, cfg, mix, side="program", device="cpu") -> dict:
     grid against the reference's, and the reference's value at the point
     the ask returned for that draw against the program's least value over
     the grid points no earlier draw took; over the largest reference
-    value."""
-    checks.modelled(cfg)
-    out = []
+    value. A warped draw's row splits as the program's does (kernel theta,
+    then d log-alphas, then d log-betas), and the reference warps the
+    training points and the grid by that row's warp in its own precision.
+
+    Warped, also ``grid_rel``: the largest gap between the uniform each
+    grid entry was drawn as and the reference's Beta CDF of the entry
+    under the consensus warp (the warp part of the float64 geometric
+    median of the program's chain). The control has no grid of its own:
+    it reads the program's."""
+    checks.modelled(cfg, MODELS)
+    n_warp = cfg["d"] if cfg["gp_kwargs"].get("warp_inputs") else 0
+    out, grid_gaps = [], []
     data = checks.Data(records["X"], records["y"], cfg, device)
     n = data.X["float64"].shape[0]
+    if n_warp:
+        median = ref.geometric_median(data.t(records["chain"]))
+        consensus = median[-2 * n_warp : -n_warp], median[-n_warp:]
     for r in records["asks"]:
         grid = r["grid"].double().cpu().numpy()
+        if n_warp:  # a grid that never went through the inverse warp has no uniforms
+            grid_gaps.append(float((ref_warp.warp(data.t(grid), *consensus)
+                                    - data.t(r["uniforms"])).abs().max())
+                             if "uniforms" in r else math.nan)
         answers = data.t(r["answers"])
         taken = torch.cdist(answers, data.t(grid)).argmin(dim=1)
         for q, j in enumerate(r["draws"]):
             rand = {k: None if v is None else v[q].double().cpu().numpy()
                     for k, v in r["rand"].items()}
+            row = r["rows"][q].double().cpu().numpy()
 
-            def draw(points, s, q=q, rand=rand):
+            def draw(points, s, rand=rand, row=row):
                 with ref.precision(s):
+                    theta, X, P = data.t(row, s), data.X[s], data.t(points, s)
+                    if n_warp:
+                        la, lb = theta[-2 * n_warp : -n_warp], theta[-n_warp:]
+                        theta = theta[: -2 * n_warp]
+                        X, P = ref_warp.warp(X, la, lb), ref_warp.warp(P, la, lb)
                     return ref.pathwise_draw(
-                        data.t(r["rows"][q].double().cpu().numpy(), s), data.X[s], data.y[s],
-                        data.jitter, data.nu, data.t(points, s), data.t(rand["z"], s),
+                        theta, X, data.y[s], data.jitter, data.nu, P, data.t(rand["z"], s),
                         None if rand["u"] is None else data.t(rand["u"], s),
                         data.t(rand["phase"], s), data.t(rand["w"][:, 0], s),
                         data.t(rand["e"][:n, 0], s)).double()
@@ -131,4 +169,7 @@ def numbers(records, cfg, mix, side="program", device="cpu") -> dict:
             best = float(torch.where(free, prog, math.inf).min())
             out.append(max(float((prog - ref64).abs().max()), abs(best - answer_value))
                        / float(ref64.abs().max()))
-    return {"draw_rel": checks.worst(out)}
+    result = {"draw_rel": checks.worst(out)}
+    if n_warp:
+        result["grid_rel"] = checks.worst(grid_gaps)
+    return result

@@ -14,6 +14,9 @@ import numpy as np
 from .. import checks, core
 from ..common import Recorder, bowl, keep_chain, make_kernel, report_failure, spans
 
+# what this loop's check models beyond checks.MODELLED: nothing
+MODELS = {}
+
 
 def run(run) -> dict:
     from bask_tpu_torch.models.bayesgpr import BayesGPR
@@ -73,7 +76,7 @@ def run(run) -> dict:
 def numbers(records, cfg, mix, side="program", device="cpu") -> dict:
     """``lml_rel``, ``chain_lp_rel`` and ``stuck_share`` of the checked
     fits (:mod:`portbench.checks`)."""
-    checks.modelled(cfg)
+    checks.modelled(cfg, MODELS)
     out = {"lml_rel": [], "chain_lp_rel": [], "stuck_share": []}
     for r in records:
         data = checks.Data(r["X"], r["y"], cfg, device)

@@ -41,16 +41,18 @@ def cell_entry(cell_name):
 def tiny(cell_name):
     """The cell's configuration and mix at a size the CPU runs in seconds:
     3 dimensions, 16 walkers, tens of points; the batch ask keeps more
-    than 2,048 candidates so that it takes the pathwise draws."""
+    than 2,048 candidates so that it takes the pathwise draws. A mix is
+    sized by its keys, whatever its loop: ``studies`` the sequential
+    studies', ``batch`` the batch ask's, any other the fit's."""
     from portbench import core
 
     cell, cfg = cell_entry(cell_name)
     mix = core.traffic(cell["traffic"])
     cfg.update(d=3, walkers=16, n=40)
-    cfg["optimizer_kwargs"]["n_points"] = 4096 if mix["loop"] == "batch_ask" else 50
-    if mix["loop"] == "seq_loop":
+    cfg["optimizer_kwargs"]["n_points"] = 4096 if "batch" in mix else 50
+    if "studies" in mix:
         mix.update(studies=2, n_start=30, reload_at=34, cold_extensions=0)
-    elif mix["loop"] == "batch_ask":
+    elif "batch" in mix:
         mix.update(batch=8, check_draws=2)
     else:
         mix.update(steps=20, burnin=10)

@@ -74,6 +74,19 @@ def test_batch_points_altered(run_tiny, patch):
     assert not run_tiny("batch15d.ask")["correct"]
 
 
+@pytest.mark.parametrize("fault,number", [("draw_consensus_warp", "draw_rel"),
+                                          ("grid_not_unwarped", "grid_rel")])
+def test_warped_ask_fault(run_tiny, fault, number):
+    """A draw warped by the consensus warp instead of its own row's, and a
+    grid handed on uniform in the warped space, each fail their number."""
+    from portbench import faults
+
+    with faults.FAULTS[fault]():
+        result = run_tiny("batch15d_warp.ask")
+    checks = result["checks"]
+    assert checks[number]["value"] > checks[number]["limit"] and not result["correct"], checks
+
+
 @pytest.mark.parametrize("cell", ["ns15d.fit", "ns15d.seq_pvrs"])
 def test_chain_that_keeps_its_state(run_tiny, patch, cell):
     from bask_tpu_torch.models import bayesgpr

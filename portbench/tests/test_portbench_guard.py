@@ -37,7 +37,7 @@ def test_harness_loads_no_jax():
         "import bask_tpu_torch, bask_tpu_torch.optimizer\n"
         "from portbench import core, common, checks, control, faults\n"
         "from portbench.loops import seq_loop, batch_ask, fit_loop\n"
-        "from portbench.reference import gp\n"
+        "from portbench.reference import gp, warp\n"
         "bench = core.benchmark()\n"
         "[core.metric_reader(m['name']) for m in bench['per_layer']]\n"
         "import importlib.util as u\n"
@@ -47,7 +47,7 @@ def test_harness_loads_no_jax():
 
 def test_reference_imports_nothing_of_the_program():
     loaded = _modules_after("import sys; sys.path.insert(0, '.')\n"
-                            "from portbench.reference import gp")
+                            "from portbench.reference import gp, priors, warp")
     assert not {"bask_tpu_torch", "bask_tpu", "bask", "jax"} & loaded
 
 

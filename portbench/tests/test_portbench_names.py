@@ -47,7 +47,7 @@ def test_cell_resolves(cell):
     cfg = core.config(BENCH, cell["config"])
     from portbench import checks
 
-    checks.modelled(cfg)
+    checks.modelled(cfg, loop.MODELS)
     limits = core.limits(cell["name"])
     assert limits and all(v > 0 for v in limits.values())
     e2e = [m["name"] for m in core.cell_metrics(BENCH, "end_to_end", cell["name"])]

@@ -42,7 +42,7 @@ def _trace(units=2, kernels=(("gram_wb_kernel<1>", 100, 150), ("chol_inv_kernel"
     events += [_event(n, a, b, True) for n, a, b in kernels]
     spans = {"span.refit": (0.5, units), "span.grid": (0.01, units),
              "span.acquisition": (0.1, units), "span.chain": (0.3, 1)}
-    cfg = {"walkers": 100, "d": 15, "n": 1000}
+    cfg = {"walkers": 100, "d": 15, "n": 1000, "optimizer_kwargs": {"n_points": 65536}}
     return core.Trace(_Tracer(events, spans, {"chain_steps": 300}, launches), units, cfg,
                       {"steps": 300, "batch": 256})
 
@@ -99,6 +99,60 @@ def test_k5_reader_takes_each_query_launch_at_its_own_shape():
     tr = _trace(kernels=kernels, launches=[_k5(False), _k5(True)])
     with pytest.raises(RuntimeError, match="noted calls"):
         core.metric_reader("k5_roofline_pct.ask")(tr)
+
+
+def _k6(n):
+    return dict(kernel="K6", B=256, n=n, d=15, shared=True, pdf=False, itemsize=4,
+                captured=False, window=True, profiled=True)
+
+
+K7_NOTE = dict(kernel="K7", n=65536, d=15, n_iter=60, itemsize=4, captured=False, window=True,
+               profiled=True)
+WARPS = (("void unwarp_kernel<float, 2>(float const*)", 0, 180),
+         ("void warp_kernel<float, 4>(float const*)", 180, 200),
+         ("void warp_kernel<float, 4>(float const*)", 200, 900))
+
+
+def test_k6_and_k7_readers_take_the_grid_launches():
+    tr = _trace(kernels=WARPS, launches=[K7_NOTE, _k6(1024), _k6(65536)])
+    # the grid's K6 launch, 700 us against 608.5 us; K7's 180 us against 143.5 us
+    assert core.metric_reader("k6_roofline_pct.ask")(tr) == pytest.approx(
+        100 * 608.487 / 700.0, rel=1e-4)
+    assert core.metric_reader("k7_roofline_pct.ask")(tr) == pytest.approx(
+        100 * 143.524 / 180.0, rel=1e-4)
+
+
+def test_warp_readers_read_nothing_in_an_unwarped_ask_and_check_their_counts():
+    tr = _trace(kernels=(("pathwise_mma_kernel", 0, 20),), launches=[_k5(True)])
+    assert core.metric_reader("k6_roofline_pct.ask")(tr) is None
+    assert core.metric_reader("k7_roofline_pct.ask")(tr) is None
+    tr = _trace(kernels=WARPS, launches=[K7_NOTE, _k6(65536)])
+    with pytest.raises(RuntimeError, match="noted calls"):
+        core.metric_reader("k6_roofline_pct.ask")(tr)
+
+
+def test_warp_notes_leave_the_launch_counters_in_place(monkeypatch):
+    """The notes sit on the launchers, so the program's counters, which
+    are attributes of its entry functions, stay where it updates them."""
+    import contextlib
+
+    import torch
+
+    from bask_tpu_torch.ops import warp_values
+    from portbench import common
+
+    monkeypatch.setattr(warp_values, "_launch_warp", lambda X, la, lb, with_pdf=False: X)
+    monkeypatch.setattr(warp_values, "_launch_unwarp", lambda Z, la, lb, n_iter=60: Z)
+    tracer = core.Tracer(torch)
+    with contextlib.ExitStack() as stack:
+        common.note_warps(stack, tracer)
+        warp_values._launch_warp(torch.rand(64, 3), torch.zeros(8, 3), torch.zeros(8, 3))
+        warp_values._launch_unwarp(torch.rand(64, 3), torch.zeros(3), torch.zeros(3), 30)
+    assert [(x["kernel"], x["n"], x["d"]) for x in tracer.launches] == [("K6", 64, 3),
+                                                                         ("K7", 64, 3)]
+    assert tracer.launches[0]["B"] == 8 and tracer.launches[1]["n_iter"] == 30
+    assert hasattr(warp_values.warp_values, "launches")
+    assert hasattr(warp_values.unwarp_values, "launches")
 
 
 def test_chain_step_reader_checks_the_step_count():
