@@ -8,9 +8,9 @@
 // X (n, d) shared by every row or (B, n, d) one per row, and optionally the
 // Beta pdf at the clamped x (the derivative JAX's betainc has in x, for
 // the backward). K7 computes models/warping.unwarp's function: the x with
-// I_x(a, b) = clamp(z, 0, 1), by 6 * rounds bisection steps on [0, 1]
-// (rounds = ceil(n_iter / 6): the 2^-60 bracket of the JAX package's 60
-// steps by default), returned as the midpoint of the last bracket.
+// I_x(a, b) = clamp(z, 0, 1), by bisection over the type's ordered bit
+// patterns of [0, 1] (30 steps at float32, 62 at float64 end on two
+// adjacent representable x), returned as the end whose CDF lies nearer z.
 //
 // What they replace: XLA's fusion of jax.scipy.special.betainc inside the
 // JAX package's jitted log-probability (bask_tpu/models/warping.py:33-37,
@@ -38,14 +38,19 @@
 // bit-equal to the plain version; they are held to it in float64 within
 // stated tolerances (chip_smoke.py phase 15, tests/test_torch_cuda.py).
 //
-// K7 is a bisection: lo = 0, w = 1; each step halves w, probes mid = lo + w
-// and keeps mid as lo where the CDF there lies below z. Where the CDF is
-// monotone in the type's arithmetic that finds the bracket of the plain
-// version's 64-way search (63 probes a round, ops/warp_values.py
-// unwarp_plain, 6 bisection steps' worth); where rounding makes it
-// non-monotone the two may part by a bracket, so K7 is held to the
-// float64 root within a limit (x within UNWARP_TOL of it, or its float64
-// CDF within WARP_TOL of z), not to the plain search bit for bit.
+// K7 is a bisection on the bit patterns: a non-negative float's pattern,
+// read as an unsigned integer, grows with its value, so [0, 1] is the
+// integers [0, bits(1)], and halving that range halves the count of
+// representable x in the bracket, whatever their scale. lo = bits(0), hi =
+// bits(1); each step probes mid = lo + (hi - lo) / 2 and keeps it as lo
+// where the CDF there lies below z, else as hi, and keeps the CDF at both
+// ends. Where a or b is well below 1 the CDF is steep at an end (a = 0.03
+// maps z up to 0.3 below 2^-60), and a bisection of [0, 1] by halving
+// its width stops at its last width there; this one reaches the smallest
+// subnormal. The plain version (ops/warp_values.py unwarp_plain) runs the
+// same steps op by op; where rounding makes a CDF non-monotone the two
+// may part by a step, so K7 is held to the float64 root within a limit
+// (x within UNWARP_TOL of it, or its float64 CDF within WARP_TOL of z).
 //
 // What bounds them on an H100: operations. Counted as ops/warp_values.py
 // does (k6_operations, k7_operations: what the function needs, a division,
@@ -53,8 +58,9 @@
 // once a column's 48 coefficients are made) and moves no byte beyond its
 // input and output: at the batch ask's queries, (256, 65,536, 15) from
 // shared X, 4.1e10 operations (0.61 ms at 67 TFLOP/s) against 1.0 GB
-// written (0.30 ms at 3.35 TB/s); the unwarp of a 65,536 x 15 grid, 60
-// bisection steps an entry, 9.6e9 operations (0.14 ms) against 7.9 MB.
+// written (0.30 ms at 3.35 TB/s); the unwarp of a 65,536 x 15 grid, 30
+// bisection steps an entry at float32, 4.8e9 operations (0.07 ms) against
+// 7.9 MB.
 //
 // What the designs do about it. The coefficients c_k depend on the
 // column's (a, b) and the side of the flip only, never on x: each block
@@ -75,10 +81,10 @@
 // threads an SM): unrolled whole, the compiler loads all 48 pairs ahead
 // and a thread took 128-154 registers, one or two blocks an SM, up to 1.3x
 // slower (scripts/warp_ab.py, PERF.md). K7 runs one thread per entry's
-// bisection, 60 CDFs an entry, the count its bound assumes (a 64-way
-// search spends 630). Where the grid is too small to fill the card (the
-// north-star tell's 500 x 15, 7,500 entries) K7 waits on the latency of
-// its 60 dependent steps: there each thread carries one entry, the
+// bisection, 30 CDFs an entry at float32, the count its bound assumes.
+// Where the grid is too small to fill the card (the north-star tell's
+// 500 x 15, 7,500 entries) K7 waits on the latency of its 30 dependent
+// steps: there each thread carries one entry, the
 // fraction is unrolled whole, and blocks shrink below 256 threads so that
 // every SM gets some. Nothing but the inputs and the outputs reaches the
 // card's memory.
@@ -105,6 +111,9 @@ struct Fn;
 template <>
 struct Fn<float> {
   using Pair = float2;
+  using Bits = unsigned int;
+  static __device__ __forceinline__ Bits one_bits() { return 0x3F800000u; }  // 1.0f
+  static __device__ __forceinline__ float from_bits(Bits i) { return __uint_as_float(i); }
   static __device__ __forceinline__ float log(float x) { return logf(x); }
   static __device__ __forceinline__ float log1p(float x) { return log1pf(x); }
   static __device__ __forceinline__ float exp(float x) { return expf(x); }
@@ -115,6 +124,11 @@ struct Fn<float> {
 template <>
 struct Fn<double> {
   using Pair = double2;
+  using Bits = unsigned long long;
+  static __device__ __forceinline__ Bits one_bits() { return 0x3FF0000000000000ull; }  // 1.0
+  static __device__ __forceinline__ double from_bits(Bits i) {
+    return __longlong_as_double((long long)i);
+  }
   static __device__ __forceinline__ double log(double x) { return ::log(x); }
   static __device__ __forceinline__ double log1p(double x) { return ::log1p(x); }
   static __device__ __forceinline__ double exp(double x) { return ::exp(x); }
@@ -282,7 +296,8 @@ warp_kernel(const T* __restrict__ X, long long x_batch_stride, const T* __restri
 }
 
 // K7. The blocks and threads of K6 over Z; each of a thread's R entries
-// bisects on its own bracket, the R CDFs of a step taken together.
+// bisects on its own bracket of bit patterns, the R CDFs of a step taken
+// together. A NaN z stays NaN.
 template <typename T, int R>
 __global__ void __launch_bounds__(kThreads)
 unwarp_kernel(const T* __restrict__ Z, long long z_batch_stride, const T* __restrict__ la,
@@ -305,28 +320,42 @@ unwarp_kernel(const T* __restrict__ Z, long long z_batch_stride, const T* __rest
   T* ob = out + b * n * d;
   for (long long i0 = first + threadIdx.x / width; i0 < last;
        i0 += (long long)R * rows_per_pass) {
-    T z[R], lo[R];
+    using Bits = typename Fn<T>::Bits;
+    T z[R], cdf_lo[R], cdf_hi[R];
+    Bits lo[R], hi[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const long long i = i0 + (long long)r * rows_per_pass;
       z[r] = i < last ? clamp01(zb[i * d + j]) : T(0);
-      lo[r] = T(0);
+      lo[r] = 0;
+      hi[r] = Fn<T>::one_bits();
+      cdf_lo[r] = T(0);
+      cdf_hi[r] = T(1);
     }
-    T w = T(1);
     for (int s = 0; s < steps; ++s) {
-      w = w * T(0.5);  // exact
+      Bits m[R];
       T mid[R], cdf[R], lx[R], l1x[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r) mid[r] = lo[r] + w;
+      for (int r = 0; r < R; ++r) {
+        m[r] = lo[r] + ((hi[r] - lo[r]) >> 1);
+        mid[r] = Fn<T>::from_bits(m[r]);
+      }
       beta_cdf<T, R>(col, coef + c, mid, cdf, lx, l1x);
 #pragma unroll
-      for (int r = 0; r < R; ++r) lo[r] = cdf[r] < z[r] ? mid[r] : lo[r];
+      for (int r = 0; r < R; ++r) {
+        const bool below = cdf[r] < z[r];
+        lo[r] = below ? m[r] : lo[r];
+        cdf_lo[r] = below ? cdf[r] : cdf_lo[r];
+        hi[r] = below ? hi[r] : m[r];
+        cdf_hi[r] = below ? cdf_hi[r] : cdf[r];
+      }
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const long long i = i0 + (long long)r * rows_per_pass;
       if (i >= last) break;
-      ob[i * d + j] = lo[r] + T(0.5) * w;
+      const Bits x = z[r] - cdf_lo[r] <= cdf_hi[r] - z[r] ? lo[r] : hi[r];
+      ob[i * d + j] = z[r] != z[r] ? z[r] : Fn<T>::from_bits(x);
     }
   }
 }
@@ -393,9 +422,8 @@ int launch_unwarp_r(const T* Z, long long z_batch_stride, const T* la, long long
 template <typename T>
 int launch_unwarp(const T* Z, long long z_batch_stride, const T* la, long long la_stride,
                   const T* lb, long long lb_stride, T* out, int B, long long n, int d,
-                  int rounds, void* stream) {
-  if (B < 0 || n < 0 || d < 1 || rounds < 0 || rounds > 0x7fffffff / 6)
-    return (int)cudaErrorInvalidValue;
+                  int steps, void* stream) {
+  if (B < 0 || n < 0 || d < 1 || steps < 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || n == 0) return (int)cudaSuccess;
   // kK7Entries entries a thread where full blocks of them still give 2
   // blocks an SM (the plan keeps its blocks whole); one where the grid is
@@ -405,9 +433,9 @@ int launch_unwarp(const T* Z, long long z_batch_stride, const T* la, long long l
   const cudaStream_t s = (cudaStream_t)stream;
   if (wide.rows_per_pass == kThreads / wide.width)
     return launch_unwarp_r<T, kK7Entries>(Z, z_batch_stride, la, la_stride, lb, lb_stride, out,
-                                         B, n, d, 6 * rounds, wide, s);
+                                         B, n, d, steps, wide, s);
   return launch_unwarp_r<T, 1>(Z, z_batch_stride, la, la_stride, lb, lb_stride, out, B, n, d,
-                               6 * rounds, plan_for(B, n, d, 1), s);
+                               steps, plan_for(B, n, d, 1), s);
 }
 
 }  // namespace
@@ -431,18 +459,19 @@ extern "C" int bask_warp_f64(const double* X, long long x_batch_stride, const do
 }
 
 // K7. Z and the log-parameters as K6's X and log-parameters; out
-// contiguous (B, n, d); rounds = ceil(n_iter / 6), 6 bisection steps each.
+// contiguous (B, n, d); steps bisection steps over the bit patterns (30
+// at float32 and 62 at float64 reach adjacent representable x).
 extern "C" int bask_unwarp_f32(const float* Z, long long z_batch_stride, const float* la,
                                long long la_stride, const float* lb, long long lb_stride,
-                               float* out, int B, long long n, int d, int rounds, void* stream) {
+                               float* out, int B, long long n, int d, int steps, void* stream) {
   return launch_unwarp<float>(Z, z_batch_stride, la, la_stride, lb, lb_stride, out, B, n, d,
-                              rounds, stream);
+                              steps, stream);
 }
 
 extern "C" int bask_unwarp_f64(const double* Z, long long z_batch_stride, const double* la,
                                long long la_stride, const double* lb, long long lb_stride,
-                               double* out, int B, long long n, int d, int rounds,
+                               double* out, int B, long long n, int d, int steps,
                                void* stream) {
   return launch_unwarp<double>(Z, z_batch_stride, la, la_stride, lb, lb_stride, out, B, n, d,
-                               rounds, stream);
+                               steps, stream);
 }

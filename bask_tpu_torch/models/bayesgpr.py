@@ -796,9 +796,13 @@ class BayesGPR:
         return self._tensor(self.warp_alphas_), self._tensor(self.warp_betas_)
 
     def _warp_tensor(self, X):
-        """X (..., d) tensor in the consensus-warped space."""
+        """X (..., d) tensor in the consensus-warped space (``span.gp.warp``;
+        without warping X itself, and no span)."""
         params = self._warp_params()
-        return X if params is None else wp.warp(X, *params)
+        if params is None:
+            return X
+        with trace.span("span.gp.warp"):
+            return wp.warp(X, *params)
 
     def _row_cfg(self):
         """``(row_mesh, row_nb, row_unroll)``, or None outside row mode (or
@@ -1865,8 +1869,13 @@ class BayesGPR:
         return wp.warp(self._tensor(X), *params).cpu().double().numpy()
 
     def unwarp(self, X):
-        """The inverse of :meth:`warp`."""
+        """The inverse of :meth:`warp` (``span.gp.unwarp``, its readback a
+        ``span.wait``; without warping X itself, and no span)."""
         params = self._warp_params()
         if params is None:
             return X
-        return wp.unwarp(self._tensor(X), *params).cpu().double().numpy()
+        with trace.span("span.gp.unwarp"):
+            x = wp.unwarp(self._tensor(X), *params)
+            with trace.wait():
+                x = x.cpu()
+            return x.double().numpy()

@@ -30,13 +30,14 @@ in [0.2, 5], 5e-14 in [0.05, 20] and 2e-11 in [0.01, 100] (float64, the
 bounds ``tests/test_torch_warping.py`` holds; the default warp prior puts
 a and b in [0.2, 5] at 5 sigma).
 
-The inverse CDF (``unwarp``) has no closed form. JAX bisects 60 times.
-The plain version here runs a 64-way search that narrows the bracket by
-64 per round (63 Beta CDFs at once), so 10 rounds give the same 2^-60
-bracket with a sixth of the sequential steps (launches). K7 bisects, one
-thread per entry, 6 steps a round (60 CDFs an entry): the same bracket,
-held to the float64 root within a limit rather than to the plain search
-bit for bit (``csrc/warp.cu`` says why).
+The inverse CDF (``unwarp``) has no closed form. JAX halves [0, 1] 60
+times, which leaves x no nearer 0 than 2^-61 however steep the CDF: at
+a = 0.03 every z below 0.3 lands there. Here the bisection runs over the
+type's ordered bit patterns of [0, 1] instead (30 steps at float32, 62 at
+float64) and ends on the representable x whose CDF lies nearest z, as
+exact as the type allows at either end. K7 bisects so, one thread per
+entry, held to the float64 root within a limit rather than to the plain
+version bit for bit (``csrc/warp.cu`` says why).
 """
 
 from __future__ import annotations
@@ -75,14 +76,14 @@ def warp_grad(X, log_alphas, log_betas):
 
 
 def unwarp(Z, log_alphas, log_betas, n_iter: int = 60):
-    """Columnwise Beta PPF: the x with betainc(a, b, x) = z, returned as
-    the midpoint of its bracket. ``n_iter`` is the JAX package's count of
-    bisection steps: a 64-way search runs ``ceil(n_iter / 6)`` rounds of
-    6 bits each (10 by default, a 2^-60 bracket), so the bracket is at
-    most as wide as ``n_iter`` bisections leave it. K7 on a CUDA tensor,
-    the plain version on a CPU tensor (:func:`~bask_tpu_torch.ops.
-    warp_values.unwarp_values`)."""
-    return _k.unwarp_values(Z, log_alphas, log_betas, n_iter)
+    """Columnwise Beta PPF: the representable x (in Z's type) whose
+    betainc(a, b, x) lies nearest z, by bisection over the type's bit
+    patterns. ``n_iter``, the JAX package's count of bisection steps of
+    [0, 1], is taken for its signature: whatever it is, the root lies in
+    its bracket, and this x is the type's nearest to the root. K7 on a
+    CUDA tensor, the plain version on a CPU tensor
+    (:func:`~bask_tpu_torch.ops.warp_values.unwarp_values`)."""
+    return _k.unwarp_values(Z, log_alphas, log_betas)
 
 
 def default_warp_log_prior(log_alphas, log_betas, scale: float = 0.3):

@@ -10,15 +10,19 @@ incomplete beta function of the clamped inputs column by column,
 for X shared (n, d) or one per row (B, n, d) and log-parameters (d,) or
 (B, d); with ``with_pdf`` the same pass also writes the Beta pdf at the
 clamped x, the derivative JAX's ``betainc`` has in x. K7 computes
-``models.warping.unwarp``'s function, the Beta PPF: ``6 * rounds_for(n_iter)``
-bisection steps on [0, 1], the midpoint of the last bracket. Their plain
-versions, here beside them, are :func:`warp_plain` (:func:`betainc` of
-the clamped inputs), :func:`beta_pdf_plain` and :func:`unwarp_plain`, a
-64-way search (63 probes a round, ``rounds_for(n_iter)`` rounds) that
-reaches the same bracket. K7's bisection is not that search bit for bit:
-where rounding makes the CDF non-monotone the two may part by a bracket,
-so K7 is held to the float64 root within a limit (``chip_smoke.py``
-phase 15, ``tests/test_torch_cuda.py``).
+``models.warping.unwarp``'s function, the Beta PPF: a bisection over the
+type's ordered bit patterns of [0, 1], :func:`full_steps` steps (30 at
+float32, 62 at float64) to two adjacent representable x, of which it
+returns the one whose CDF lies nearer z. So x is as exact as its type
+wherever the CDF is steep: a bisection that halves the bracket's width
+stops at its last width, and at a = 0.03 sixty such steps leave every z
+below 0.3 at about 2^-61. Their plain versions, here beside them, are
+:func:`warp_plain` (:func:`betainc` of the clamped inputs),
+:func:`beta_pdf_plain` and :func:`unwarp_plain`, the same bisection op
+by op. K7's CDF is not the plain one bit for bit, and where rounding
+makes a CDF non-monotone the two may part by a step, so K7 is held to the
+float64 root within a limit (``chip_smoke.py`` phase 15,
+``tests/test_torch_cuda.py``).
 
 The route, in one place: :func:`warp_values` and :func:`unwarp_values`
 run the plain versions on a CPU tensor and launch their kernel once on a
@@ -39,8 +43,7 @@ the JAX package's jitted log-probability (``bask_tpu/models/warping.py``
 lines 33-37) and its ``fori_loop`` bisection (lines 63-79), one device
 program each; there is no Pallas kernel. Run op by op, the plain version
 makes a ``(48, *x.shape)`` coefficient tensor per call and launches once
-per continued-fraction term, and its unwarp runs that on 63 probes at
-once, 10 times.
+per continued-fraction term, and its unwarp runs that once a step.
 
 What bounds them on an H100: operations. The counts that define their
 bounds are what the function needs (a division, a log or an exp counted
@@ -51,8 +54,8 @@ coefficient times x, the division, the add), and 16 around them (the
 flip, 1 - x, the front's logs, products, sums and exp, the division by
 the fraction, the flip back). :func:`k6_operations` adds the clamp (2)
 and, with the pdf, 5 more per entry (from the CDF's logs: two products,
-two sums, the exp). :func:`k7_operations` counts the bisection: 6 steps
-a round, each a CDF and 3 (the midpoint, the comparison, the update).
+two sums, the exp). :func:`k7_operations` counts the bisection: each step
+a CDF and 3 (the midpoint, the comparison, the update).
 
 What the kernels do about it (``csrc/warp.cu``): each block makes its row's
 coefficients once, for its group of at most 32 columns and both sides of
@@ -61,7 +64,7 @@ FMA on the pair (P, Q) whose ratio is the fraction's tail, and no
 division (one at the end); a thread carries several entries of its
 column through the fraction at once (K6 4, K7 2, or 1 on a grid too small
 to fill the card), one shared load of a term's pair serving them all.
-K7 runs one thread per entry, 60 CDFs an entry by default.
+K7 runs one thread per entry, 30 CDFs an entry at float32.
 """
 
 from __future__ import annotations
@@ -73,11 +76,14 @@ import torch
 
 __all__ = ["warp_values", "unwarp_values", "betainc", "warp_plain", "beta_pdf_plain",
            "unwarp_plain", "CDF_OPERATIONS", "k6_operations", "k7_operations",
-           "rounds_for"]
+           "full_steps"]
 
 CF_TERMS = 48  # terms of the continued fraction
-WAYS = 64  # a round of the unwarp's search resolves 6 bits
 CDF_OPERATIONS = 3 * CF_TERMS + 16
+# the bit pattern of 1.0, read as an integer of the same width, by type:
+# the unwarp's bisection runs over the integers [0, that]
+_ONE_BITS = {torch.float32: (0x3F800000, torch.int32),
+             torch.float64: (0x3FF0000000000000, torch.int64)}
 
 
 def k6_operations(entries: int, with_pdf: bool = False) -> float:
@@ -87,17 +93,18 @@ def k6_operations(entries: int, with_pdf: bool = False) -> float:
     return float(entries) * (2 + CDF_OPERATIONS + (5 if with_pdf else 0))
 
 
-def k7_operations(entries: int, rounds: int) -> float:
-    """K7's operations for ``entries`` outputs and ``rounds`` rounds: the
-    clamp of z, and the 6 bisection steps a round resolves, each a CDF and
-    3 (the midpoint, the comparison, the update)."""
-    return float(entries) * (2 + 6 * rounds * (CDF_OPERATIONS + 3))
+def k7_operations(entries: int, steps: int) -> float:
+    """K7's operations for ``entries`` outputs and ``steps`` bisection
+    steps: the clamp of z, and each step a CDF and 3 (the midpoint, the
+    comparison, the update)."""
+    return float(entries) * (2 + steps * (CDF_OPERATIONS + 3))
 
 
-def rounds_for(n_iter: int) -> int:
-    """The search's rounds for the JAX package's ``n_iter`` bisection
-    steps: ``ceil(n_iter / 6)``, none for ``n_iter <= 0``."""
-    return max(0, -(-int(n_iter) // 6))
+def full_steps(dtype) -> int:
+    """The unwarp's bisection steps that leave two adjacent representable
+    x of ``dtype`` (float32 or float64) in the bracket: the bit length of
+    1.0's pattern, 30 and 62."""
+    return _ONE_BITS[dtype][0].bit_length()
 
 
 # -- the plain versions --
@@ -160,21 +167,27 @@ def beta_pdf_plain(X, log_alphas, log_betas):
     return torch.exp((b - 1.0) * torch.log1p(-x) + (a - 1.0) * torch.log(x) - _betaln(a, b))
 
 
-def unwarp_plain(Z, log_alphas, log_betas, n_iter: int = 60, terms: int = CF_TERMS):
-    """K7's plain version: each round evaluates the 63 probes
-    ``lo + width * k / 64`` at once (CDFs of ``terms`` terms) and moves
-    ``lo`` by the count below z."""
+def unwarp_plain(Z, log_alphas, log_betas, steps=None, terms: int = CF_TERMS):
+    """K7's plain version, of the broadcast shape of Z (float32 or
+    float64) and the log-parameters: ``steps`` (default
+    :func:`full_steps`) bisection steps over the bit patterns of [0, 1]
+    (CDFs of ``terms`` terms), then the end of the bracket whose CDF lies
+    nearer z; a NaN z stays NaN."""
     a, b = ab(log_alphas, log_betas)
     Z = torch.clamp(Z, 0.0, 1.0)
-    steps = torch.arange(1, WAYS, dtype=Z.dtype, device=Z.device) / WAYS
-    steps = steps.view((-1,) + (1,) * Z.ndim)
-    lo = torch.zeros_like(Z)
-    width = 1.0
-    for _ in range(rounds_for(n_iter)):
-        below = (betainc(a, b, lo + width * steps, terms) < Z).sum(0)
-        lo = lo + below.to(Z.dtype) * (width / WAYS)
-        width /= WAYS
-    return lo + 0.5 * width
+    Z = Z.expand(torch.broadcast_shapes(Z.shape, a.shape))
+    one, itype = _ONE_BITS[Z.dtype]
+    lo = torch.zeros(Z.shape, dtype=itype, device=Z.device)
+    hi = torch.full_like(lo, one)
+    cdf_lo, cdf_hi = torch.zeros_like(Z), torch.ones_like(Z)
+    for _ in range(full_steps(Z.dtype) if steps is None else steps):
+        mid = lo + (hi - lo) // 2
+        cdf = betainc(a, b, mid.view(Z.dtype), terms)
+        below = cdf < Z
+        lo, cdf_lo = torch.where(below, mid, lo), torch.where(below, cdf, cdf_lo)
+        hi, cdf_hi = torch.where(below, hi, mid), torch.where(below, cdf_hi, cdf)
+    x = torch.where(Z - cdf_lo <= cdf_hi - Z, lo, hi).view(Z.dtype)
+    return torch.where(torch.isnan(Z), Z, x)
 
 
 # -- the kernels --
@@ -296,26 +309,27 @@ def _launch_warp(X, log_alphas, log_betas, with_pdf=False):
     return (out, pdf) if with_pdf else out
 
 
-def unwarp_values(Z, log_alphas, log_betas, n_iter: int = 60):
+def unwarp_values(Z, log_alphas, log_betas, steps=None):
     """K7: ``warping.unwarp``'s function, the Beta PPF, of the plain
-    version's broadcast shape, in Z's type (float32 or float64).
+    version's broadcast shape, in Z's type (float32 or float64), by
+    ``steps`` (default :func:`full_steps`) bisection steps over the bit
+    patterns of [0, 1].
 
-    A CPU tensor runs the plain version (:func:`unwarp_plain`: a 64-way
-    search, :func:`rounds_for` ``(n_iter)`` rounds of 63 probes); a CUDA
+    A CPU tensor runs the plain version (:func:`unwarp_plain`); a CUDA
     tensor launches the kernel once (and raises if it cannot): one thread
-    per entry bisects ``6 * rounds_for(n_iter)`` times to the same bracket,
-    held to the float64 root within a limit, not to the search bit for
-    bit.
+    per entry, held to the float64 root within a limit, not to the plain
+    version bit for bit.
     ``unwarp_values.launches`` counts the launches."""
+    steps = full_steps(Z.dtype) if steps is None else int(steps)
     if not Z.is_cuda:
-        return unwarp_plain(Z, log_alphas, log_betas, n_iter)
-    return _launch_unwarp(Z, log_alphas, log_betas, n_iter)
+        return unwarp_plain(Z, log_alphas, log_betas, steps)
+    return _launch_unwarp(Z, log_alphas, log_betas, steps)
 
 
 unwarp_values.launches = 0
 
 
-def _launch_unwarp(Z, log_alphas, log_betas, n_iter=60):
+def _launch_unwarp(Z, log_alphas, log_betas, steps):
     from ._cuda import check, library
 
     Zk, z_stride, la, lb, B, n, d, out_shape = _layout(Z, log_alphas, log_betas)
@@ -327,7 +341,7 @@ def _launch_unwarp(Z, log_alphas, log_betas, n_iter=60):
             Zk.data_ptr(), ctypes.c_longlong(z_stride), la.data_ptr(),
             ctypes.c_longlong(la.stride(0) if B > 1 else 0), lb.data_ptr(),
             ctypes.c_longlong(lb.stride(0) if B > 1 else 0), out.data_ptr(), B,
-            ctypes.c_longlong(n), d, rounds_for(n_iter), stream,
+            ctypes.c_longlong(n), d, steps, stream,
         )
         check(err, entry)
         unwarp_values.launches += 1

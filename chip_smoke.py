@@ -3206,10 +3206,11 @@ UNWARP_TOL = {"float32": 1e-6, "float64": 2e-15}
 # outside the float64 limit but inside float32's own rounding, so the
 # float32 limit is held against 6 terms, ~8e-5 off); K7's limit is held
 # against the plain unwarp with these CDFs in its probes, and against the
-# plain unwarp stopped at CONTROL_ROUNDS rounds, whose last bracket (2^-18,
-# 2^-42) is wider than UNWARP_TOL
+# float64 plain unwarp stopped at CONTROL_STEPS of its 62 bisection steps
+# over the bit patterns, whose last bracket near 1 (2^-9, 2^-33) is wider
+# than UNWARP_TOL
 CONTROL_TERMS = {"float32": 6, "float64": 12}
-CONTROL_ROUNDS = {"float32": 3, "float64": 7}
+CONTROL_STEPS = {"float32": 18, "float64": 42}
 # the published peaks of one H100 SXM outside the tensor cores by type
 # (NVIDIA's datasheet), for K6's and K7's bounds
 FLOPS = {"float32": F32_FLOPS, "float64": 34e12}
@@ -3375,7 +3376,7 @@ def k7_check_and_time(dev, dtype, m, seed, check_limit=8192, chunk=4096, plain=T
             share = max(share, unwarp_share(out[lo:lo + chunk], ref, z64, la, lb, dtype))
             control = wv.unwarp_plain(z64, la64, lb64, terms=CONTROL_TERMS[dtype])
             short_cdf = max(short_cdf, unwarp_share(control, ref, z64, la, lb, dtype))
-            control = wv.unwarp_plain(z64, la64, lb64, n_iter=6 * CONTROL_ROUNDS[dtype])
+            control = wv.unwarp_plain(z64, la64, lb64, CONTROL_STEPS[dtype])
             early = max(early, unwarp_share(control, ref, z64, la, lb, dtype))
         return err, share, short_cdf, early, bool(torch.isfinite(out).all())
 
@@ -3389,15 +3390,16 @@ def k7_check_and_time(dev, dtype, m, seed, check_limit=8192, chunk=4096, plain=T
     plain_ms = _once_ms(plain_in_chunks) if plain else None
     entries = m * N_DIM
     n_bytes = Z.element_size() * (2 * entries + la.numel() + lb.numel())
-    ops = wv.k7_operations(entries, wv.rounds_for(60))
+    steps = wv.full_steps(Z.dtype)
+    ops = wv.k7_operations(entries, steps)
     bound, by = bound_ms(n_bytes, ops, FLOPS[dtype])
     tol = UNWARP_TOL[dtype]
-    return {"dtype": dtype, "shape": [m, N_DIM], "rounds": wv.rounds_for(60),
+    return {"dtype": dtype, "shape": [m, N_DIM], "steps": steps,
             "checked_rows": min(m, check_limit), "max_abs_err": err, "tol": tol,
             "tol_rule": "|dx| <= UNWARP_TOL or |CDF64(x) - z| <= WARP_TOL",
             "largest_share_of_limit": share,
             "control_short_cdf_share": short_cdf, "control_terms": CONTROL_TERMS[dtype],
-            "control_early_share": early, "control_rounds": CONTROL_ROUNDS[dtype],
+            "control_early_share": early, "control_steps": CONTROL_STEPS[dtype],
             "device_ops_per_call": ops_per_call, "other_device_ops": foreign, "ms": ms,
             "alone_ms": None if alone is None else alone / 1e3, "plain_ms": plain_ms,
             "plain_in_chunks_of_rows": chunk, "bound_ms": bound, "bound_by": by,

@@ -19,7 +19,9 @@ VALUE;`` (``kK7Entries=2``; a name the source lacks raises). That
 inputs (``chip_smoke._warp_case``): K6 at the batch ask's queries (256,
 65,536, 15) from shared X and at the chain's half-batch (50, 512, 15); K7
 at the ask's candidate grid (65,536, 15) and the north-star grid (500,
-15), 10 rounds. Each kernel is first held to the float64 plain version
+15), 30 bisection steps over the bit patterns (a ``warp.cu`` older than
+that bisection reads its last argument as rounds of 6 halvings of [0, 1]
+instead). Each kernel is first held to the float64 plain version
 (K6 on four rows of the ask's shape, all of the chain's, within
 ``WARP_TOL``; K7 on the first 4,096 rows by ``chip_smoke.unwarp_share``);
 then both are timed alone (torch.profiler device time, median of 3
@@ -91,7 +93,7 @@ def build_other(csrc: str, settings):
 
 
 def other_launch(lib, kernel, X, la, lb):
-    """The other library's K6 (warp only) or K7 (10 rounds) on the
+    """The other library's K6 (warp only) or K7 (30 steps) on the
     wrappers' layout of the arguments."""
     import torch
 
@@ -106,7 +108,8 @@ def other_launch(lib, kernel, X, la, lb):
     if kernel == "K6":
         err = lib.bask_warp_f32(*head, None, B, ctypes.c_longlong(n), d, stream)
     else:
-        err = lib.bask_unwarp_f32(*head, B, ctypes.c_longlong(n), d, wv.rounds_for(60), stream)
+        steps = wv.full_steps(torch.float32)
+        err = lib.bask_unwarp_f32(*head, B, ctypes.c_longlong(n), d, steps, stream)
     if err:
         raise RuntimeError(f"the other {kernel} failed: CUDA error {err}")
     return out
@@ -138,7 +141,7 @@ def bound(kernel, X, la, lb, entries):
         n_bytes = 4 * (X.numel() + la.numel() + lb.numel() + entries)
         return cs.bound_ms(n_bytes, wv.k6_operations(entries))
     n_bytes = 4 * (2 * entries + la.numel() + lb.numel())
-    return cs.bound_ms(n_bytes, wv.k7_operations(entries, wv.rounds_for(60)))
+    return cs.bound_ms(n_bytes, wv.k7_operations(entries, wv.full_steps(X.dtype)))
 
 
 def main() -> int:

@@ -111,8 +111,10 @@ def test_kernel_setter_assigns_the_spec():
 
 @pytest.mark.parametrize("n_iter", [10, 60])
 def test_unwarp_n_iter_matches_jax(n_iter):
-    """Within 2^-n_iter of JAX's bisection of n_iter steps: both brackets
-    hold the root and are at most 2^-n_iter wide. Beside it, the two
+    """Within 2^-n_iter of JAX's bisection of n_iter steps: its bracket,
+    at most 2^-n_iter wide, holds the root, and the port's x is the float
+    nearest it, whatever n_iter (the port bisects the bit patterns to the
+    end; ``warping.unwarp`` says why). Beside it, the two
     packages' incomplete beta functions agree to ~1e-10 at these (a, b),
     which moves the root by up to the 1e-9 that
     ``tests/test_torch_warping.py`` holds the default unwarp to."""
@@ -125,7 +127,7 @@ def test_unwarp_n_iter_matches_jax(n_iter):
     ref = np.asarray(jwp.unwarp(jnp.asarray(Z), jnp.asarray(np.log(a)), jnp.asarray(np.log(b)),
                                 n_iter=n_iter))
     np.testing.assert_allclose(ours, ref, rtol=0, atol=2.0 ** -n_iter + 1e-9)
-    if n_iter == 60:  # the default: today's 10 rounds, unchanged
+    if n_iter == 60:  # the default
         default = twp.unwarp(torch.from_numpy(Z), torch.from_numpy(np.log(a)),
                              torch.from_numpy(np.log(b))).numpy()
         np.testing.assert_array_equal(ours, default)

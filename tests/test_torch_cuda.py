@@ -1328,24 +1328,34 @@ def test_warp_kernel_matches_float64_plain(dev, dtype, shape, rows):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape,rows,n_iter", [((500, 15), (), 60), ((3, 77, 5), (3,), 61),
-                                               ((64, 4), (), 6)])
-def test_unwarp_kernel_matches_float64_plain(dev, dtype, shape, rows, n_iter):
+@pytest.mark.parametrize("shape,rows,case", [((500, 15), (), "full"), ((3, 77, 5), (3,), "past"),
+                                             ((64, 4), (), "steep")])
+def test_unwarp_kernel_matches_float64_plain(dev, dtype, shape, rows, case):
     """K7 (and warping.unwarp) against the float64 plain version on the
-    same inputs, shared and per-row, 10, 11 and 1 rounds; one launch."""
+    same inputs, shared and per-row: at the type's full depth, 70 steps
+    (past it: the same x), and a steep warp (a and b down to 0.03, where
+    the CDF maps z up to 0.3 below 2^-60), where z must also lie in the
+    float64 CDF's image of x's cell in its type; one launch."""
     from bask_tpu_torch.models import warping as twp
     from bask_tpu_torch.ops import warp_values as wv
 
     Z, la, lb = _warp_inputs(dev, dtype, shape, rows, seed=1)
+    if case == "steep":
+        la = torch.log(torch.tensor([0.03, 1.0, 0.05, 25.0], dtype=dtype, device=dev))
+        lb = la.flip(0)
     before = wv.unwarp_values.launches
-    out = twp.unwarp(Z, la, lb, n_iter=n_iter)
+    out = twp.unwarp(Z, la, lb, n_iter=60)
     torch.cuda.synchronize()
     assert wv.unwarp_values.launches == before + 1 and out.dtype == dtype
-    ref = wv.unwarp_plain(Z.double(), la.double(), lb.double(), n_iter)
+    if case == "past":
+        assert torch.equal(wv.unwarp_values(Z, la, lb, 70), out)
+    ref = wv.unwarp_plain(Z.double(), la.double(), lb.double())
     diff = (out.double() - ref).abs()
-    if n_iter <= 6:  # one round: its bracket
-        assert float(diff.max()) <= 2.0 ** -6
-        return
+    if case == "steep":
+        cell = [wv.warp_plain(torch.nextafter(out, torch.full_like(out, e)).double(),
+                              la.double(), lb.double()) for e in (0.0, 1.0)]
+        z = Z.double().clamp(0.0, 1.0)
+        assert bool((cell[0] - WARP_TOL[dtype] <= z).all() & (z <= cell[1] + WARP_TOL[dtype]).all())
     resid = (wv.warp_plain(out.double(), la.double(), lb.double())
              - Z.double().clamp(0.0, 1.0)).abs()
     share = float(torch.minimum(diff / UNWARP_TOL[dtype], resid / WARP_TOL[dtype]).max())

@@ -306,3 +306,57 @@ def test_the_ring_keeps_the_last_records(traced):
     assert snap["spans"]["span.opt.ask"]["count"] == trace.RING + 10
     ids = [r["id"] for r in snap["records"]]
     assert ids == sorted(ids) and len(set(ids)) == trace.RING
+
+
+def _warped_two_tells():
+    """:func:`_two_tells` on a model with ``warp_inputs``."""
+    opt = Optimizer(dimensions=[(0.0, 1.0), (0.0, 1.0)], n_points=30, n_initial_points=6,
+                    init_strategy="random", random_state=3, device="cpu", dtype=torch.float64,
+                    gp_kwargs={"warp_inputs": True},
+                    gp_sample_kwargs={"until_rhat": None, "n_walkers_per_thread": 16})
+    X = np.random.RandomState(1).uniform(size=(6, 2))
+    _tell(opt, X.tolist(), ((X - 0.4) ** 2).sum(1).tolist())
+    trace.reset()
+    _tell(opt, [0.3, 0.6], 0.05)
+    opt.ask()
+    return opt, trace.snapshot(records=True)
+
+
+def test_a_warped_tell_opens_the_warp_spans(traced):
+    """The consensus warps the posterior's data and PVRS the candidates
+    (``span.gp.warp``); the grid's inverse warp (``span.gp.unwarp``) sits
+    in ``span.opt.grid`` and waits once more, for its readback."""
+    _, snap = _warped_two_tells()
+    recs = snap["records"]
+    warps = [_ancestry(r, recs) for r in recs if r["name"] == "span.gp.warp"]
+    assert sorted(a[0] for a in warps) == ["span.acq.fused", "span.gp.consensus"]
+    (unwarp,) = [r for r in recs if r["name"] == "span.gp.unwarp"]
+    assert _ancestry(unwarp, recs) == ["span.opt.grid", "span.opt.acquisition", "span.opt.tell"]
+    # the grid's upload and its readback
+    assert [r["name"] for r in _children(unwarp, recs)] == ["span.wait"] * 2
+
+
+def test_an_unwarped_tell_opens_neither_warp_span_and_waits_as_before(traced):
+    _, snap = _two_tells()
+    assert not {"span.gp.warp", "span.gp.unwarp"} & set(snap["spans"])
+    assert snap["spans"]["span.wait"]["count"] == 18  # as before the warp spans existed
+    gp = BayesGPR(bk.ConstantKernel(1.0, (0.1, 2.0)) * bk.Matern((0.3,), (0.05, 2.0)),
+                  device="cpu", dtype=torch.float64)
+    Z = np.random.RandomState(0).uniform(size=(5, 1))
+    Zt = torch.from_numpy(Z)
+    trace.reset()
+    assert gp.unwarp(Z) is Z and gp._warp_tensor(Zt) is Zt
+    assert trace.snapshot()["spans"] == {}
+
+
+def test_the_unwarp_readback_counts_one_wait(traced):
+    opt, _ = _warped_two_tells()
+    Z = np.random.RandomState(2).uniform(size=(10, 2))
+    trace.reset()
+    back = opt.gp.unwarp(Z)
+    snap = trace.snapshot(records=True)
+    # the warp's two log-parameters, then inside the span the grid's upload and the readback
+    assert [r["name"] for r in snap["records"]] == ["span.wait"] * 4 + ["span.gp.unwarp"]
+    assert [r["parent"] for r in snap["records"]] == [None] * 2 + ["span.gp.unwarp"] * 2 + [None]
+    assert snap["spans"]["span.gp.unwarp"]["wait_seconds"] > 0
+    np.testing.assert_allclose(opt.gp.warp(back), Z, atol=1e-12)

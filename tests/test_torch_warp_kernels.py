@@ -104,9 +104,9 @@ def kernel_route(monkeypatch):
         calls.append(("K6", with_pdf))
         return _plain_with_pdf(X, la, lb) if with_pdf else wv.warp_plain(X, la, lb)
 
-    def k7(Z, la, lb, n_iter=60):
-        calls.append(("K7", n_iter))
-        return wv.unwarp_plain(Z, la, lb, n_iter)
+    def k7(Z, la, lb, steps=None):
+        calls.append(("K7", steps))
+        return wv.unwarp_plain(Z, la, lb, steps)
 
     monkeypatch.setattr(wv, "_launch_warp", k6)
     monkeypatch.setattr(wv, "warp_values", wv._warp_on_card)
@@ -132,7 +132,7 @@ def test_kernel_route_takes_the_function_only_for_a_gradient_in_x(kernel_route):
     """Through warping.warp on the kernel route: K6 with the pdf (the
     Function) where X requires a gradient, without it elsewhere; the
     x-gradient equals autograd's through the plain version; unwarp takes
-    K7 with the caller's n_iter."""
+    K7 at the type's full depth, whatever the caller's n_iter."""
     rng = np.random.RandomState(3)
     X = torch.from_numpy(rng.uniform(size=(30, 4)))
     la, lb = (torch.from_numpy(0.3 * rng.randn(5, 4)) for _ in range(2))
@@ -143,7 +143,7 @@ def test_kernel_route_takes_the_function_only_for_a_gradient_in_x(kernel_route):
     np.testing.assert_allclose(g.numpy(), gp.numpy(), rtol=1e-12, atol=0)
     twp.warp(X, la, lb)
     twp.unwarp(X, la[0], lb[0], n_iter=30)
-    assert kernel_route == [("K6", True), ("K6", False), ("K7", 30)]
+    assert kernel_route == [("K6", True), ("K6", False), ("K7", None)]
 
 
 # -- NumPy models of the kernels' arithmetic (csrc/warp.cu), in the
@@ -214,19 +214,25 @@ def _k6_model(X, la, lb, exponents=None):
     return _model_cdf(col, table, x, exponents)
 
 
-def _k7_model(Z, la, lb, n_iter):
-    """K7 in NumPy: ``6 * rounds_for(n_iter)`` bisection steps (w halved,
-    mid = lo + w, lo = mid where the CDF there lies below z), then the
-    last bracket's midpoint."""
+def _k7_model(Z, la, lb, steps=None):
+    """K7 in NumPy: ``steps`` (default ``wv.full_steps``) bisection steps
+    over the type's bit patterns (mid = lo + (hi - lo) // 2, kept as lo
+    where the CDF there lies below z, else as hi, with the CDF at both
+    ends), then the end whose CDF lies nearer z; a NaN z stays NaN."""
     dt = Z.dtype.type
+    ints = np.uint32 if dt == np.float32 else np.uint64
     col, table = _model_parts(la, lb, dt)
     z = np.where(Z < 0, dt(0), np.where(Z > 1, dt(1), Z))
-    lo, w = np.zeros_like(z), dt(1)
-    for _ in range(6 * wv.rounds_for(n_iter)):
-        w = dt(w * dt(0.5))
-        mid = lo + w
-        lo = np.where(_model_cdf(col, table, mid)[0] < z, mid, lo)
-    return lo + dt(0.5) * w
+    lo, hi = np.zeros(z.shape, ints), np.full(z.shape, np.ones(1, dt).view(ints)[0])
+    cdf_lo, cdf_hi = np.zeros_like(z), np.ones_like(z)
+    for _ in range(wv.full_steps(getattr(torch, dt.__name__)) if steps is None else steps):
+        mid = lo + (hi - lo) // ints(2)
+        cdf = _model_cdf(col, table, mid.view(dt))[0]
+        below = cdf < z
+        lo, cdf_lo = np.where(below, mid, lo), np.where(below, cdf, cdf_lo)
+        hi, cdf_hi = np.where(below, hi, mid), np.where(below, cdf_hi, cdf)
+    x = np.where(z - cdf_lo <= cdf_hi - z, lo, hi).view(dt)
+    return np.where(np.isnan(z), z, x)
 
 
 def _ends(A, values):
@@ -292,36 +298,62 @@ def test_k6_model_fraction_stays_in_the_exponent_range(dtype):
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("n_iter", [6, 60, 61])
-def test_k7_model_within_the_smoke_limit(dtype, n_iter):
+@pytest.mark.parametrize("steps", [None, 70, "control"])
+def test_k7_model_within_the_smoke_limit(dtype, steps):
     """The model of K7's bisection (one entry's steps, on the model of K6's
-    CDF) against the float64 plain search (``warping.unwarp`` on float64
-    tensors) at 1, 10 and 11 rounds, on z inside, at, near and past the
-    ends and NaN, with (a, b) over the prior's 5-sigma range: within the
-    smoke's rule (``chip_smoke.unwarp_share``: x within UNWARP_TOL of the
-    root or its float64 CDF within WARP_TOL of z) at 10 and 11 rounds;
-    within its 2^-6 bracket of the float64 search at one round; a NaN z
-    gives the plain version's lo + width / 2 from lo = 0."""
+    CDF) against the float64 plain version (``warping.unwarp`` on float64
+    tensors) on z inside, at, near and past the ends and NaN, with (a, b)
+    over the prior's 5-sigma range: within the smoke's rule
+    (``chip_smoke.unwarp_share``: x within UNWARP_TOL of the root or its
+    float64 CDF within WARP_TOL of z) at the type's full depth; steps past
+    it change nothing; stopped at the smoke's ``CONTROL_STEPS`` it misses
+    the rule; a NaN z stays NaN, as in the plain version."""
     rng = np.random.RandomState(11)
     Z = _ends(rng.uniform(size=(160, 15)), _AT_THE_ENDS + [np.nan]).astype(dtype)
     la, lb = (rng.uniform(-1.5, 1.5, 15).astype(dtype) for _ in range(2))
-    x = _k7_model(Z, la, lb, n_iter)
+    n = cs.CONTROL_STEPS[dtype.__name__] if steps == "control" else steps
+    x = _k7_model(Z, la, lb, n)
     assert x.dtype == dtype
+    if steps == 70:
+        np.testing.assert_array_equal(x, _k7_model(Z, la, lb))
     Z64, la64, lb64 = (torch.from_numpy(v.astype(np.float64)) for v in (Z, la, lb))
     nan = np.isnan(Z)
     plain = wv.unwarp_plain(torch.from_numpy(Z), torch.from_numpy(la), torch.from_numpy(lb),
-                            n_iter).numpy()
-    np.testing.assert_array_equal(x[nan], plain[nan])
-    ref = wv.unwarp_plain(Z64, la64, lb64, n_iter)
+                            n).numpy()
+    assert np.isnan(x[nan]).all() and np.isnan(plain[nan]).all()
+    ref = wv.unwarp_plain(Z64, la64, lb64)
     keep = torch.from_numpy(~nan)
     xt = torch.from_numpy(x.astype(np.float64))
-    if n_iter <= 6:
-        assert float((xt - ref)[keep].abs().max()) <= 2.0 ** -6
-        return
     share = cs.unwarp_share(xt[keep], ref[keep], Z64[keep],
                             la64.expand(Z.shape)[keep], lb64.expand(Z.shape)[keep],
                             dtype.__name__)
-    assert share <= 1.0, share
+    assert (share > 1.0) if steps == "control" else (share <= 1.0), share
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_k7_model_resolves_a_steep_warp_to_the_type(dtype):
+    """Where a or b is well below 1 the CDF is steep at an end (at a = 0.03
+    every z below 0.3 maps below 2^-60): the model of K7 and the plain
+    version in the same type return an x whose cell, the CDF's image of
+    x's neighbours in that type, holds z (the float64 plain CDF, within
+    WARP_TOL of the type's CDF rounding), on z spread over (0, 1) in
+    log scale at both ends."""
+    z = np.concatenate([np.logspace(-12, -0.3, 40), 1.0 - np.logspace(-0.3, -7, 40)])
+    ab = np.log([0.03, 0.05, 1.0, 4.0, 0.03, 25.0])
+    la, lb = ab.astype(dtype), ab[::-1].copy().astype(dtype)
+    Z = np.repeat(z[:, None], len(ab), axis=1).astype(dtype)
+    tol = cs.WARP_TOL[dtype.__name__]
+    for x in (_k7_model(Z, la, lb),
+              wv.unwarp_plain(*(torch.from_numpy(v) for v in (Z, la, lb))).numpy()):
+        xt = torch.from_numpy(x)
+        cells = [torch.nextafter(xt, torch.zeros_like(xt)), torch.nextafter(xt, torch.ones_like(xt))]
+        lo64, hi64 = (wv.warp_plain(c.double(), torch.from_numpy(la).double(),
+                                    torch.from_numpy(lb).double()).numpy() for c in cells)
+        z64 = Z.astype(np.float64)
+        assert (lo64 - tol <= z64).all() and (z64 <= hi64 + tol).all()
+        assert x.dtype == dtype
+        # far below the 2^-61 where the JAX package's 60 halvings of [0, 1] stop
+        assert 0.0 < x[:, 0][x[:, 0] > 0].min() < 2.0 ** -100
 
 
 def _emulate(layout, fn):
@@ -449,8 +481,9 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     out, pdf = wv.warp_values(X, la, lb, with_pdf=True)
     assert torch.equal(out, w) and torch.equal(pdf, wv.beta_pdf_plain(X, la, lb))
     u = twp.unwarp(X, la[0], lb[0], n_iter=12)
-    assert torch.equal(u, wv.unwarp_plain(X, la[0], lb[0], 12))
-    assert torch.equal(wv.unwarp_values(X, la[0], lb[0], 12), u)
+    assert torch.equal(u, wv.unwarp_plain(X, la[0], lb[0]))
+    assert torch.equal(wv.unwarp_values(X, la[0], lb[0]), u)
+    assert torch.equal(wv.unwarp_values(X, la[0], lb[0], 12), wv.unwarp_plain(X, la[0], lb[0], 12))
     assert (wv.warp_values.launches, wv.unwarp_values.launches) == (k6, k7)
 
 
@@ -458,12 +491,12 @@ def test_operation_counts():
     """The counts that define K6's and K7's bounds at the batch ask's
     shapes, what the function needs: 160 operations a CDF (3 a term with
     the coefficients made per column); (256, 65,536, 15) warped, 4.08e10;
-    a 65,536 x 15 grid unwarped to a 2^-60 bracket, 60 bisection steps,
-    9.62e9."""
+    a 65,536 x 15 float32 grid unwarped to adjacent floats, 30 bisection
+    steps over the bit patterns (62 at float64), 4.81e9."""
     assert wv.CDF_OPERATIONS == 160
     assert wv.k6_operations(256 * 65536 * 15) == pytest.approx(4.0769e10, rel=1e-4)
-    assert wv.k7_operations(65536 * 15, 10) == pytest.approx(9.6161e9, rel=1e-4)
-    assert [wv.rounds_for(n) for n in (0, -3, 1, 6, 60, 61)] == [0, 0, 1, 1, 10, 11]
+    assert [wv.full_steps(t) for t in (torch.float32, torch.float64)] == [30, 62]
+    assert wv.k7_operations(65536 * 15, 30) == pytest.approx(4.8091e9, rel=1e-4)
     assert math.isclose(wv.k6_operations(1, with_pdf=True) - wv.k6_operations(1), 5)
 
 
@@ -475,8 +508,8 @@ def _emulated_k6(X, la, lb, with_pdf=False):
     return (out, _emulate(layout, wv.beta_pdf_plain)) if with_pdf else out
 
 
-def _emulated_k7(Z, la, lb, n_iter=60):
-    return _emulate(wv._layout(Z, la, lb), lambda z, a, b: wv.unwarp_plain(z, a, b, n_iter))
+def _emulated_k7(Z, la, lb, steps=None):
+    return _emulate(wv._layout(Z, la, lb), lambda z, a, b: wv.unwarp_plain(z, a, b, steps))
 
 
 def _warped_asks(acq):
