@@ -364,8 +364,15 @@ def _entry_key(graph: ChainGraph, W: int, D: int, dtype, device) -> tuple:
         tuple((tuple(t.shape), t.dtype) for t in graph.inputs),
         graph.key,
         gram.LOWER_GRAM, gram._K4_ROUTE.get(n_pad_d), linalg.FAST_CHOLESKY,
-        torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32,
+        *_matmul_mode(),
     )
+
+
+def _matmul_mode() -> tuple:
+    """The float32 matmul settings, which a captured graph keeps as they
+    were at capture (cuBLAS's math mode is chosen when a matmul is
+    launched)."""
+    return torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32
 
 
 def _branch_key(name: str, a: float) -> tuple:

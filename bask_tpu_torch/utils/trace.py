@@ -46,7 +46,7 @@ __all__ = ["NAMES", "RING", "enable", "disable", "enabled", "reset", "snapshot",
 NAMES = (
     "span.opt.tell", "span.opt.ask", "span.opt.refit", "span.opt.acquisition", "span.opt.grid",
     "span.gp.fit", "span.gp.ml2", "span.gp.objective", "span.gp.stage", "span.gp.consensus",
-    "span.gp.warp", "span.gp.unwarp",
+    "span.gp.warp", "span.gp.unwarp", "span.gp.median_capture", "span.gp.median_replay",
     "span.mcmc.run", "span.mcmc.init", "span.mcmc.capture", "span.mcmc.replays",
     "span.acq.fused", "span.acq.probes", "span.wait",
 )

@@ -6,7 +6,8 @@ kernel library (``nvcc`` on a checkout with no build; see
 :func:`bask_tpu_torch.utils.aot.enable_aot_cache` to keep it across
 processes), the CUDA graphs of the chain step for each padding bucket
 (:mod:`bask_tpu_torch.parallel.mcmc`; one capture serves every n in a
-bucket), the cuBLAS/cuSOLVER handles and the caching allocator's blocks.
+bucket) and of the consensus's geometric median, the cuBLAS/cuSOLVER
+handles and the caching allocator's blocks.
 The graphs are cached at module level and keyed by value and by the
 identity of the priors (guessed priors are module-level functions,
 resolved SciPy and tabulated priors are cached across models), so a
@@ -45,6 +46,7 @@ def warmup_optimizer(
     """
     from ..models.bayesgpr import _bucket
     from ..optimizer import Optimizer
+    from .median import geometric_median
 
     if opt.gp.device.type == "cuda":
         from ..ops import _cuda
@@ -129,4 +131,10 @@ def warmup_optimizer(
             gp_samples=gp_samples,
             gp_burnin=gp_burnin,
         )
+        if opt.gp.device.type == "cuda":
+            # the warm tell's consensus may be its median's first call at
+            # this shape, which runs eagerly; a second call captures the
+            # median's graph, so the loop's first warm tell replays it
+            # (utils/median.py; a CPU median always runs eagerly)
+            geometric_median(clone.gp._tensor(clone.gp.chain_))
     return buckets

@@ -25,7 +25,9 @@ blocks by cholesky_ex) against the dense float64 model; K1, K2 and K4
 with ``n_real`` as a device scalar bit-equal to the int, the chain
 replayed from CUDA graphs bit-equal to the eager chain (K4, K2 on warped
 X, K1, and bucket 64's cholesky_ex) with the same launch counts, and no
-graph captured after ``warmup_optimizer``; the chain at
+graph captured after ``warmup_optimizer`` (the warm tells' medians
+replay); the geometric median's block of iterations captured on a key's
+second call and replayed bit-equal to the eager loop; the chain at
 ``linalg.FAST_CHOLESKY = "off"`` (cuSOLVER) replayed bit-equal to its
 eager chain with no K3, a flip of the switch capturing anew, and "on" at
 float64 (K3's plain version as the bases) against "off"; K5 (the pathwise draws'
@@ -58,6 +60,7 @@ torch.set_num_threads(1)
 
 from bask_tpu_torch.ops import chol_base, gram, linalg  # noqa: E402
 from bask_tpu_torch.ops import kernels as bk  # noqa: E402
+from bask_tpu_torch.utils import median, trace  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -950,7 +953,8 @@ def test_graphed_chain_is_the_eager_chain(dev, warp, n, d, lower):
 
 def test_no_capture_after_warmup(dev):
     """After ``warmup_optimizer`` the first tell and three warm tells of
-    the real loop capture no graph (tests/test_warmup.py's case)."""
+    the real loop capture no chain graph (tests/test_warmup.py's case),
+    and the warm tells' medians capture none either: they replay."""
     from bask_tpu_torch import Optimizer, warmup_optimizer
     from bask_tpu_torch.parallel import mcmc
 
@@ -961,12 +965,27 @@ def test_no_capture_after_warmup(dev):
                             n_samples=3) == [64]
     captures = mcmc.graph_stats["captures"]
     rng = np.random.RandomState(0)
-    for _ in range(5):
-        x = opt.ask()
-        opt.tell(x, float(np.sin(3 * x[0]) + 0.05 * rng.randn()), n_samples=3,
-                 gp_samples=20, gp_burnin=2)
+    median_spans = []  # (captures, replays) of each warm tell's median
+    trace.reset()
+    trace.enable()
+    try:
+        for _ in range(5):
+            warm = opt.gp.pos_ is not None
+            trace.reset()
+            x = opt.ask()
+            opt.tell(x, float(np.sin(3 * x[0]) + 0.05 * rng.randn()), n_samples=3,
+                     gp_samples=20, gp_burnin=2)
+            spans = trace.snapshot()["spans"]
+            if warm:
+                median_spans.append(tuple(spans.get(n, {"count": 0})["count"] for n in (
+                    "span.gp.median_capture", "span.gp.median_replay")))
+    finally:
+        trace.disable()
+        trace.reset()
     assert opt.gp.chain_ is not None
     assert mcmc.graph_stats["captures"] == captures
+    # the warm tells' medians replay the graph the warm-up captured
+    assert median_spans and all(c == 0 and r >= 1 for c, r in median_spans)
 
 
 @pytest.mark.parametrize("warp,n,d", [(False, 500, 15), (True, 120, 4)])
@@ -1411,3 +1430,86 @@ def test_warp_kernels_in_a_cuda_graph(dev):
     torch.cuda.synchronize()
     assert torch.equal(w, twp.warp(X2, la2, lb2))
     assert torch.equal(u, twp.unwarp(X2, la2[0], lb2[0]))
+
+
+def _median_counts():
+    spans = trace.snapshot()["spans"]
+    return tuple(spans.get(n, {"count": 0})["count"]
+                 for n in ("span.gp.median_capture", "span.gp.median_replay"))
+
+
+@pytest.fixture
+def median_cache(monkeypatch):
+    """An empty cache of the median's graphs; tracing on."""
+    from collections import OrderedDict
+
+    monkeypatch.setattr(median, "_CACHE", OrderedDict())
+    trace.reset()
+    trace.enable()
+    try:
+        yield
+    finally:
+        trace.disable()
+        trace.reset()
+
+
+@pytest.mark.parametrize("shape", [(100, 17), (100, 47), (15000, 17)])
+@pytest.mark.parametrize("max_iter", [26, 200])
+def test_graphed_median_is_the_eager_loop_bit_for_bit(dev, median_cache, shape, max_iter):
+    """One key's calls (eager, capture and replays, replays) on kept steps
+    read in place from a chain (offset views) and on a fresh tensor whose
+    steps never fall below eps (every block replayed at max_iter 200): each
+    the eager loop's median bit for bit."""
+    n, D = shape
+    rng = np.random.RandomState(n + D)
+    chain = torch.tensor(0.3 * rng.randn(11, n, D) + rng.randn(D), dtype=torch.float32,
+                         device=dev)
+    inputs = [chain[10], chain[4], chain[7] + 1e3, chain[10], chain[1]]
+    for X in inputs:
+        want = median._eager(X, 1e-5, max_iter)
+        got = median.geometric_median(X, max_iter=max_iter)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert _median_counts()[0] == 1
+    assert _median_counts()[1] >= len(inputs) - 1
+
+
+def test_median_captures_on_a_keys_second_call(dev, median_cache):
+    """A key's first call captures nothing and replays nothing, its second
+    captures once, later calls only replay; another shape starts over."""
+    rng = np.random.RandomState(0)
+    X = torch.tensor(rng.randn(100, 17), dtype=torch.float32, device=dev)
+    counts = []
+    for _ in range(4):
+        trace.reset()
+        median.geometric_median(X)
+        counts.append(_median_counts())
+    assert counts == [(0, 0), (1, 1), (0, 1), (0, 1)]  # converged at the first check
+    trace.reset()
+    median.geometric_median(X[:50])
+    assert _median_counts() == (0, 0)
+
+
+def test_a_matmul_precision_change_captures_anew(dev, median_cache):
+    """A graph keeps the matmul math mode of its capture: after
+    ``set_float32_matmul_precision("high")`` the key is seen anew (eager),
+    its next call captures again, and the replay is the eager loop's median
+    under the new setting bit for bit."""
+    rng = np.random.RandomState(1)
+    X = torch.tensor(rng.randn(100, 17), dtype=torch.float32, device=dev)
+    for _ in range(2):
+        median.geometric_median(X)
+    assert _median_counts()[0] == 1
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        trace.reset()
+        median.geometric_median(X)
+        assert _median_counts() == (0, 0)
+        got = median.geometric_median(X)
+        assert _median_counts()[0] == 1
+        want = median._eager(X, 1e-5, 200)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    finally:
+        torch.set_float32_matmul_precision(before)

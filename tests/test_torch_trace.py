@@ -205,6 +205,36 @@ def test_each_wrapped_readback_counts_one_wait(traced, readback, waits):
     assert [r["name"] for r in snap["records"]].count("span.wait") == waits
 
 
+def test_median_spans_open_only_on_a_graphed_call(traced, monkeypatch):
+    """An eager CPU median opens neither median span, however often its key
+    comes; through the graph path (a stand-in capture whose replay runs the
+    block eagerly) the key's second call opens one capture, and each replayed
+    call one replay with the eager loop's single stop check (max_iter 26)."""
+    from collections import OrderedDict
+
+    X = torch.as_tensor(np.random.RandomState(0).randn(40, 3))
+    for _ in range(3):
+        median.geometric_median(X, max_iter=26)
+    spans = trace.snapshot()["spans"]
+    assert spans["span.wait"]["count"] == 3
+    assert not {"span.gp.median_capture", "span.gp.median_replay"} & set(spans)
+
+    def capture(body, warm, pool, device, counters):
+        warm()
+        return type("Replay", (), {"replay": staticmethod(body)})(), ()
+
+    monkeypatch.setattr(mcmc, "_capture_step", capture)
+    monkeypatch.setattr(median, "_CACHE", OrderedDict())
+    counts = []
+    for _ in range(3):
+        trace.reset()
+        median._graphed(X, 1e-5, 26)
+        spans = trace.snapshot()["spans"]
+        counts.append(tuple(spans.get(n, {"count": 0})["count"] for n in (
+            "span.gp.median_capture", "span.gp.median_replay", "span.wait")))
+    assert counts == [(0, 0, 1), (1, 1, 1), (0, 1, 1)]
+
+
 def test_last_timings_are_the_spans_readings(traced):
     opt, snap = _two_tells()
     recs = snap["records"]
@@ -293,7 +323,7 @@ def test_every_span_the_package_opens_is_named():
     for path in PACKAGE.rglob("*.py"):
         opened |= set(re.findall(r'trace\.span\("([^"]+)"', path.read_text()))
     assert opened and opened <= set(trace.NAMES)
-    assert all(re.fullmatch(r"span\.[a-z]+\.[a-z0-9]+", n) for n in opened)
+    assert all(re.fullmatch(r"span\.[a-z]+\.[a-z0-9_]+", n) for n in opened)
     assert set(trace.NAMES) - opened == {"span.wait"}
 
 
