@@ -14,9 +14,9 @@
 // What bounds it on an H100: arithmetic. Per (query, feature) pair a
 // d-long dot, the cosine and a multiply-add; per (query, training point)
 // pair a d-long distance, the Matern (a root and an exponential) and a
-// multiply-add (ops/pathwise_values.py: k5_operations counts all of it on
-// the FP32 pipes, k5_operations_split puts the 2d of the dots on the
-// tensor cores). At the batch ask's shape (256 rows, 65,536 queries, 1,024
+// multiply-add (scripts/kernel_costs.py counts all of it on the FP32
+// pipes, and apart from that puts the 2d of the dots on the tensor
+// cores). At the batch ask's shape (256 rows, 65,536 queries, 1,024
 // features, 1,000 real of 1,024 points, d = 15) that is 1.02e12 dot
 // operations (2.06 ms at 495 TFLOP/s TF32) and 2.03e11 others (3.03 ms at
 // 67 TFLOP/s), against ~0.1 GB of inputs and output; and 5.07e10

@@ -52,9 +52,9 @@
 // may part by a step, so K7 is held to the float64 root within a limit
 // (x within UNWARP_TOL of it, or its float64 CDF within WARP_TOL of z).
 //
-// What bounds them on an H100: operations. Counted as ops/warp_values.py
-// does (k6_operations, k7_operations: what the function needs, a division,
-// a log or an exp counted as one), a Beta CDF is 160 operations (3 a term
+// What bounds them on an H100: operations. Counted as
+// scripts/kernel_costs.py does (what the function needs, a division, a
+// log or an exp counted as one), a Beta CDF is 160 operations (3 a term
 // once a column's 48 coefficients are made) and moves no byte beyond its
 // input and output: at the batch ask's queries, (256, 65,536, 15) from
 // shared X, 4.1e10 operations (0.61 ms at 67 TFLOP/s) against 1.0 GB

@@ -31,6 +31,8 @@ import math
 
 import torch
 
+from ..utils.graphs import counted
+
 __all__ = ["chol_inv_base", "chol_inv_plain"]
 
 _MAX_M = 128
@@ -58,6 +60,7 @@ def chol_inv_plain(A):
     return L, X
 
 
+@counted
 def chol_inv_base(A):
     """``(L, L^-1)`` of a batch of small SPD matrices ``(..., m, m)``.
 
@@ -97,6 +100,3 @@ def chol_inv_base(A):
         )
         chol_inv_base.launches += 1
     return L.reshape(A.shape), Linv.reshape(A.shape)
-
-
-chol_inv_base.launches = 0

@@ -79,6 +79,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.graphs import counted
 from . import kernels as bk
 
 __all__ = [
@@ -220,6 +221,7 @@ def fused_masked_gram_lower_plain(spec: FusedSpec, thetas, X, alpha_diag, n_real
     return torch.where(_upper_tiles(n_pad, X.device), 0.0, K)
 
 
+@counted  # K1's launches
 def fused_masked_gram_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real):
     """Masked grams for a batch of walkers: (B, n_pad, n_pad) float32.
 
@@ -242,9 +244,6 @@ def fused_masked_gram_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real):
     return _k1_gram_batch(spec, thetas, X, alpha_diag, n_real)
 
 
-fused_masked_gram_batch.launches = 0  # K1's launches
-
-
 def _k1_gram_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real):
     """K1 itself at every shape (no K4 route), counted in
     ``fused_masked_gram_batch.launches``: for the checks and timings that
@@ -256,6 +255,7 @@ def _k1_gram_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real):
     return out
 
 
+@counted
 def fused_masked_gram_lower_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real):
     """K2: the lower 128-tiles of :func:`fused_masked_gram_batch`, zeros
     above; the same arguments, with ``n_pad`` a multiple of 128.
@@ -270,9 +270,7 @@ def fused_masked_gram_lower_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real
     return out
 
 
-fused_masked_gram_lower_batch.launches = 0
-
-
+@counted
 def fused_masked_gram_wb_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real, wb: int):
     """K4: :func:`fused_masked_gram_batch` for shared ``X`` (n_pad, d),
     with ``wb`` walkers per work unit (the last unit takes the ``B % wb``
@@ -288,9 +286,6 @@ def fused_masked_gram_wb_batch(spec: FusedSpec, thetas, X, alpha_diag, n_real, w
     out = _launch("bask_gram_wb_f32", _TILE, spec, thetas, X, alpha_diag, n_real, wb=int(wb))
     fused_masked_gram_wb_batch.launches += 1
     return out
-
-
-fused_masked_gram_wb_batch.launches = 0
 
 
 def _check_wb(X, wb):

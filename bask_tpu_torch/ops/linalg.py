@@ -30,6 +30,7 @@ __all__ = [
     "batched_lml_from_gram",
     "cho_solve_masked",
     "augmented_quadform",
+    "route_key",
 ]
 
 _LOG2PI = math.log(2.0 * math.pi)
@@ -50,6 +51,12 @@ LML_MAX_BATCH_BYTES = 8_000_000_000
 # only: other dtypes factor their bases by K3's plain version), "off" never
 # (``cholesky_ex``, cuSOLVER on the card, and triangular solves).
 FAST_CHOLESKY = "auto"
+
+
+def route_key(n_pad: int, d: int) -> tuple:
+    """The gram's and the factorization's routes at X of ``(n_pad, d)``,
+    which a CUDA graph keeps as they were at its capture."""
+    return gram.LOWER_GRAM, gram._K4_ROUTE.get((int(n_pad), int(d))), FAST_CHOLESKY
 
 
 def _use_fast_path(Kp) -> bool:

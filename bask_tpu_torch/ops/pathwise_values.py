@@ -22,7 +22,8 @@ wrote every (draws, queries, features) and (draws, queries, points)
 intermediate to device memory, a 1 GiB slab at a time.
 
 What bounds it on an H100: arithmetic. The count that defines PR 10's
-bound (:func:`k5_operations`), at one column: per (query, feature) pair
+bound (``scripts/kernel_costs.py`` holds it and the split and bound
+below), at one column: per (query, feature) pair
 ``2d + 4`` float32 operations (the d-long dot, 2d; the phase; the cosine
 counted as one; the multiply-add into the sum, 2), per (query, training
 point) pair ``2d + 8`` (the scaled difference and its square per
@@ -33,12 +34,12 @@ queries, 1,024 features, n = 1,000 of 1,024 points, d = 15) that is
 1.22e12 operations (1.24e12 with the padded points), 18.2 ms at the
 card's 67 TFLOP/s outside the tensor cores, against ~0.1 GB of inputs
 and output (0.03 ms at 3.35 TB/s). The 2d of each pair are depth-d
-products, which the tensor cores can do: :func:`k5_operations_split`
-splits the same count into 1.02e12 of them (2.06 ms at 495 TFLOP/s TF32)
-and 2.03e11 others (3.03 ms at 67 TFLOP/s), a least time of 3.03 ms
-(:func:`k5_bound_ms`). Above that bound lies the design's practical
-floor: 5.07e10 transcendental results (a cosine, or a root and an
-exponential) at 16 a clock per SM on the MUFU, ~12 ms at 1.98 GHz.
+products, which the tensor cores can do: split by unit, the same count
+is 1.02e12 of them (2.06 ms at 495 TFLOP/s TF32) and 2.03e11 others
+(3.03 ms at 67 TFLOP/s), a least time of 3.03 ms. Above that bound lies
+the design's practical floor: 5.07e10 transcendental results (a cosine,
+or a root and an exponential) at 16 a clock per SM on the MUFU, ~12 ms
+at 1.98 GHz.
 
 What the design does about it (``csrc/pathwise.cu``): nothing but the
 arithmetic reaches the card's memory, and the depth-d products run on
@@ -81,48 +82,14 @@ import ctypes
 
 import torch
 
+from ..utils.graphs import counted
 from .kernels import matern_from_d2
 
-__all__ = ["pathwise_values", "pathwise_values_plain", "k5_operations", "k5_operations_split",
-           "k5_bound_ms"]
+__all__ = ["pathwise_values", "pathwise_values_plain"]
 
 _NU_CODE = {0.5: 0, 1.5: 1, 2.5: 2, float("inf"): 3}
 _MAX_R = 8  # columns a launch; more are launched in groups
 _MAX_D = 256  # input dimensions the kernel takes
-
-
-def k5_operations(B: int, m: int, n_features: int, n_points: int, d: int, r: int = 1) -> float:
-    """Float32 operations of one call, the count that defines K5's bound:
-    ``B m (n_features (2d + 2 + 2r) + n_points (2d + 6 + 2r))`` for ``r``
-    columns and the ``n_points`` the mask keeps (0 without the cross
-    term)."""
-    return float(B) * m * (n_features * (2 * d + 2 + 2 * r) + n_points * (2 * d + 6 + 2 * r))
-
-
-def k5_operations_split(B: int, m: int, n_features: int, n_points: int, d: int,
-                        r: int = 1) -> tuple:
-    """:func:`k5_operations` split by the unit that can do the work:
-    ``(depth-d products, everything else)``, the products ``2d`` per pair
-    (tensor cores), the rest on the FP32 pipes; they sum to
-    :func:`k5_operations`."""
-    products = float(B) * m * (n_features + n_points) * 2 * d
-    return products, k5_operations(B, m, n_features, n_points, d, r) - products
-
-
-# published dense peaks of one H100 SXM at 700 W (NVIDIA's datasheet)
-_TF32_FLOPS, _F32_FLOPS, _HBM_BYTES_PER_S = 495e12, 67e12, 3.35e12
-
-
-def k5_bound_ms(B: int, m: int, n_features: int, n_points: int, d: int, r: int,
-                n_bytes: float) -> tuple:
-    """(the least milliseconds of one call, what bounds it): the larger
-    of ``n_bytes`` over the HBM rate, the depth-d products over the TF32
-    tensor-core rate and the other operations over the FP32 rate (the
-    units run at once)."""
-    products, other = k5_operations_split(B, m, n_features, n_points, d, r)
-    t_bytes = n_bytes / _HBM_BYTES_PER_S
-    t_ops = max(products / _TF32_FLOPS, other / _F32_FLOPS)
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def pathwise_values_plain(nu, Xq, omega, phase, W, coef, X=None, inv_ls=None, V=None, amp=None):
@@ -150,6 +117,7 @@ def pathwise_values_plain(nu, Xq, omega, phase, W, coef, X=None, inv_ls=None, V=
     return out + amp[:, None, None] * (matern_from_d2(d2, nu) @ V)
 
 
+@counted
 def pathwise_values(nu, Xq, omega, phase, W, coef, X=None, inv_ls=None, V=None, amp=None):
     """K5: :func:`pathwise_values_plain`'s function, (B, m, R) float32.
 
@@ -167,9 +135,6 @@ def pathwise_values(nu, Xq, omega, phase, W, coef, X=None, inv_ls=None, V=None, 
         parts.append(_launch(nu, Xq, omega, phase, W[..., cols], coef, X, inv_ls,
                              None if V is None else V[..., cols], amp))
     return torch.cat(parts, dim=-1)
-
-
-pathwise_values.launches = 0
 
 
 def _plan(d: int, r: int, nu: float) -> dict:

@@ -47,14 +47,15 @@ per continued-fraction term, and its unwarp runs that once a step.
 
 What bounds them on an H100: operations. The counts that define their
 bounds are what the function needs (a division, a log or an exp counted
-as one). :data:`CDF_OPERATIONS` per Beta CDF: the 48 continued-fraction
-coefficients depend on the column's (a, b) and the side of the flip only,
-so with them made once per column a term is 3 operations (the
+as one), kept in ``scripts/kernel_costs.py``. ``CDF_OPERATIONS`` per Beta
+CDF: the 48 continued-fraction coefficients depend on the column's (a, b)
+and the side of the flip only, so with them made once per column a term
+is 3 operations (the
 coefficient times x, the division, the add), and 16 around them (the
 flip, 1 - x, the front's logs, products, sums and exp, the division by
-the fraction, the flip back). :func:`k6_operations` adds the clamp (2)
+the fraction, the flip back). K6's count adds the clamp (2)
 and, with the pdf, 5 more per entry (from the CDF's logs: two products,
-two sums, the exp). :func:`k7_operations` counts the bisection: each step
+two sums, the exp). K7's counts the bisection: each step
 a CDF and 3 (the midpoint, the comparison, the update).
 
 What the kernels do about it (``csrc/warp.cu``): each block makes its row's
@@ -74,30 +75,16 @@ import math
 
 import torch
 
+from ..utils.graphs import counted
+
 __all__ = ["warp_values", "unwarp_values", "betainc", "warp_plain", "beta_pdf_plain",
-           "unwarp_plain", "CDF_OPERATIONS", "k6_operations", "k7_operations",
-           "full_steps"]
+           "unwarp_plain", "full_steps"]
 
 CF_TERMS = 48  # terms of the continued fraction
-CDF_OPERATIONS = 3 * CF_TERMS + 16
 # the bit pattern of 1.0, read as an integer of the same width, by type:
 # the unwarp's bisection runs over the integers [0, that]
 _ONE_BITS = {torch.float32: (0x3F800000, torch.int32),
              torch.float64: (0x3FF0000000000000, torch.int64)}
-
-
-def k6_operations(entries: int, with_pdf: bool = False) -> float:
-    """K6's operations for ``entries`` outputs: the clamp and one CDF
-    each, and with the pdf its 5 (two products, two sums, the exp, on the
-    CDF's logs)."""
-    return float(entries) * (2 + CDF_OPERATIONS + (5 if with_pdf else 0))
-
-
-def k7_operations(entries: int, steps: int) -> float:
-    """K7's operations for ``entries`` outputs and ``steps`` bisection
-    steps: the clamp of z, and each step a CDF and 3 (the midpoint, the
-    comparison, the update)."""
-    return float(entries) * (2 + steps * (CDF_OPERATIONS + 3))
 
 
 def full_steps(dtype) -> int:
@@ -261,6 +248,7 @@ _NO_AB_GRADIENT = (
 )
 
 
+@counted
 def warp_values(X, log_alphas, log_betas, with_pdf: bool = False):
     """K6: ``warping.warp``'s function, and with ``with_pdf`` also the Beta
     pdf at the clamped x: ``out`` or ``(out, pdf)``, each of the plain
@@ -273,9 +261,6 @@ def warp_values(X, log_alphas, log_betas, with_pdf: bool = False):
         out = warp_plain(X, log_alphas, log_betas)
         return (out, beta_pdf_plain(X, log_alphas, log_betas)) if with_pdf else out
     return _warp_on_card(X, log_alphas, log_betas, with_pdf)
-
-
-warp_values.launches = 0
 
 
 def _warp_on_card(X, log_alphas, log_betas, with_pdf=False):
@@ -309,6 +294,7 @@ def _launch_warp(X, log_alphas, log_betas, with_pdf=False):
     return (out, pdf) if with_pdf else out
 
 
+@counted
 def unwarp_values(Z, log_alphas, log_betas, steps=None):
     """K7: ``warping.unwarp``'s function, the Beta PPF, of the plain
     version's broadcast shape, in Z's type (float32 or float64), by
@@ -324,9 +310,6 @@ def unwarp_values(Z, log_alphas, log_betas, steps=None):
     if not Z.is_cuda:
         return unwarp_plain(Z, log_alphas, log_betas, steps)
     return _launch_unwarp(Z, log_alphas, log_betas, steps)
-
-
-unwarp_values.launches = 0
 
 
 def _launch_unwarp(Z, log_alphas, log_betas, steps):

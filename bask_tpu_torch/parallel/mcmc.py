@@ -20,10 +20,10 @@ compiled scan body. ``run_ensemble(graph=...)`` captures each move of the
 chain once per configuration in a graph and replays it per step: the
 graph reads its data (training inputs and targets, jitter, mask, and
 ``n_real`` as a device scalar) from buffers that each run refills, so one
-capture serves every tell inside a padding bucket. The captures live in a
-module-level cache (:data:`_GRAPH_CACHE`), as JAX's jit cache is global:
-a warm-up clone's chain (``utils.warmup``) and the real loop's share
-them. The randoms are drawn outside the graph, by the chain's own
+capture serves every tell inside a padding bucket. The captures live in
+the module-level cache ``utils.graphs.CHAIN``, as JAX's jit cache is
+global: a warm-up clone's chain (``utils.warmup``) and the real loop's
+share them. The randoms are drawn outside the graph, by the chain's own
 generator, into the graph's static buffers, so a replayed chain equals
 the eager chain bit for bit.
 
@@ -37,13 +37,13 @@ False).
 from __future__ import annotations
 
 import math
-from collections import OrderedDict
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from ..utils import trace
+from ..ops import linalg
+from ..utils import graphs, trace
 from ..utils.progress import get_progress_bar
 
 __all__ = [
@@ -329,8 +329,6 @@ CHAIN_GRAPHS = "on"
 # graphs captured and replayed in this process (a capture is per
 # configuration and move; a replay is one step)
 graph_stats = {"captures": 0, "replays": 0}
-_GRAPH_CACHE_MAX = 8  # configurations kept; the oldest is freed first
-_WARM_STEPS = 3  # eager steps on the capture stream before a capture
 
 
 class ChainGraph(NamedTuple):
@@ -349,30 +347,16 @@ class ChainGraph(NamedTuple):
     build: Callable
 
 
-_GRAPH_CACHE: "OrderedDict[tuple, _ChainEntry]" = OrderedDict()
-_CAPTURE_STREAMS: dict = {}
-
-
 def _entry_key(graph: ChainGraph, W: int, D: int, dtype, device) -> tuple:
     """The cache key of a configuration: everything that changes the work
     a step's graph captured, besides the move (:func:`_branch_key`)."""
-    from ..ops import gram, linalg
-
-    n_pad_d = tuple(graph.inputs[0].shape[-2:])
     return (
         str(device), dtype, int(W), int(D),
         tuple((tuple(t.shape), t.dtype) for t in graph.inputs),
         graph.key,
-        gram.LOWER_GRAM, gram._K4_ROUTE.get(n_pad_d), linalg.FAST_CHOLESKY,
-        *_matmul_mode(),
+        *linalg.route_key(*graph.inputs[0].shape[-2:]),
+        *graphs.matmul_mode(),
     )
-
-
-def _matmul_mode() -> tuple:
-    """The float32 matmul settings, which a captured graph keeps as they
-    were at capture (cuBLAS's math mode is chosen when a matmul is
-    launched)."""
-    return torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32
 
 
 def _branch_key(name: str, a: float) -> tuple:
@@ -380,20 +364,10 @@ def _branch_key(name: str, a: float) -> tuple:
     return (name, float(a))
 
 
-def _launch_counters():
-    """The kernel wrappers' launch counts, which a replay adds to."""
-    from ..ops import chol_base, gram, warp_values
-
-    return (gram.fused_masked_gram_batch, gram.fused_masked_gram_lower_batch,
-            gram.fused_masked_gram_wb_batch, chol_base.chol_inv_base,
-            warp_values.warp_values)
-
-
 class _Branch(NamedTuple):
-    graph: "torch.cuda.CUDAGraph"
+    step: graphs.Captured
     specs: list  # the step's randoms, drawn into ``draws`` before a replay
     draws: list
-    launches: tuple  # each counter's launches per replay
 
 
 class _ChainEntry:
@@ -409,9 +383,9 @@ class _ChainEntry:
         self.branches: dict = {}
 
     def capture(self, name: str, a: float) -> _Branch:
-        """The step of move ``name`` in a graph (:func:`_capture_step`),
-        with its draw buffers and its launches per replay. The step leaves
-        its result in the state buffers, so replays chain."""
+        """The step of move ``name`` in a graph (:func:`graphs.capture`),
+        with its draw buffers. The step leaves its result in the state
+        buffers, so replays chain."""
         with trace.span("span.mcmc.capture"):
             specs_of, apply = _move_step(self.log_prob, name, a)
             specs = specs_of(*self.pos.shape)
@@ -428,9 +402,8 @@ class _ChainEntry:
                 _draw(warm_gen, specs, self.pos, out=draws)
                 body()
 
-            counters = _launch_counters()
             try:
-                graph, launches = _capture_step(body, warm, self.pool, self.pos.device, counters)
+                step = graphs.capture(body, warm, self.pos.device, self.pool)
             except Exception as e:
                 raise RuntimeError(
                     f"the chain step of move {name!r} could not be captured in a CUDA "
@@ -439,48 +412,7 @@ class _ChainEntry:
                     "every chain eagerly)"
                 ) from e
             graph_stats["captures"] += 1
-            return _Branch(graph, specs, draws, launches)
-
-
-def _capture_step(body, warm, pool, device, counters):
-    """Run ``warm`` ``_WARM_STEPS`` times on the device's capture stream
-    (the first uses of cuBLAS handles and their workspace, K4's tensor-map
-    encoder and the allocator's blocks happen there, not in the capture),
-    then capture ``body`` on that stream into a new graph of ``pool``.
-    Returns the graph and the launches each counter saw in the capture
-    (its replays add them). The counters are put back as they were before
-    the warm-up: the capture launches nothing, and the warm-up steps are
-    the capture's cost, not steps of the chain."""
-    if device.type != "cuda":
-        raise ValueError(f"a graphed chain runs on a CUDA device; got {device}")
-    start = [f.launches for f in counters]
-    stream = _CAPTURE_STREAMS.setdefault(device, torch.cuda.Stream(device))
-    stream.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(stream):
-        for _ in range(_WARM_STEPS):
-            warm()
-    torch.cuda.current_stream(device).wait_stream(stream)
-    before = [f.launches for f in counters]
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph, pool=pool, stream=stream):
-            body()
-    finally:
-        launches = tuple(f.launches - b for f, b in zip(counters, before))
-        for f, n in zip(counters, start):
-            f.launches = n
-    return graph, launches
-
-
-def _chain_entry(graph: ChainGraph, W: int, D: int, dtype, device) -> _ChainEntry:
-    key = _entry_key(graph, W, D, dtype, device)
-    entry = _GRAPH_CACHE.get(key)
-    if entry is None:
-        entry = _GRAPH_CACHE[key] = _ChainEntry(graph, W, D, dtype, device)
-        while len(_GRAPH_CACHE) > _GRAPH_CACHE_MAX:
-            _GRAPH_CACHE.popitem(last=False)
-    _GRAPH_CACHE.move_to_end(key)
-    return entry
+            return _Branch(step, specs, draws)
 
 
 def _run_graphed(graph, log_prob_fn, pos0, gen, names, a, move_idx, pbar):
@@ -488,7 +420,8 @@ def _run_graphed(graph, log_prob_fn, pos0, gen, names, a, move_idx, pbar):
     from ``gen`` in the same order, the same operations per step."""
     W, D = pos0.shape
     device = pos0.device
-    entry = _chain_entry(graph, W, D, pos0.dtype, device)
+    entry = graphs.CHAIN.entry(_entry_key(graph, W, D, pos0.dtype, device),
+                               lambda: _ChainEntry(graph, W, D, pos0.dtype, device))
     with trace.span("span.mcmc.init"):
         for buf, src in zip(entry.inputs, graph.inputs):
             buf.copy_(src)
@@ -502,17 +435,14 @@ def _run_graphed(graph, log_prob_fn, pos0, gen, names, a, move_idx, pbar):
     entry.pos.copy_(pos0)
     entry.lp.copy_(lp0)
     entry.accepted.zero_()
-    counters = _launch_counters()
     n_steps = len(move_idx)
     chain = torch.empty((n_steps, W, D), dtype=pos0.dtype, device=device)
     with trace.span("span.mcmc.replays"):
         for i in range(n_steps):
             br = entry.branches[keys[move_idx[i]]]
             _draw(gen, br.specs, entry.pos, out=br.draws)
-            br.graph.replay()
+            br.step.replay()
             chain[i].copy_(entry.pos)
-            for f, n in zip(counters, br.launches):
-                f.launches += n
             if (i + 1) % _PROGRESS_CHUNK == 0 or i + 1 == n_steps:
                 pbar.update((i % _PROGRESS_CHUNK) + 1)
     graph_stats["replays"] += n_steps

@@ -14,27 +14,22 @@ captures one block in a CUDA graph over static buffers
 (``span.gp.median_capture``), and that call and every later one replay it
 (``span.gp.median_replay``) in the same loop, between the same stop
 checks: the same operations on the same shapes, so the same result bit
-for bit. A key's first call runs eagerly, so one-off shapes (a cold fit's
-extended chain) never pay a capture. CPU tensors always run eagerly. The
-graphs are cached at module level, as the chain's are
-(:mod:`bask_tpu_torch.parallel.mcmc`).
+for bit. CPU tensors always run eagerly. The capture, the rule that waits
+for a key's second call and the cache are :mod:`bask_tpu_torch.utils.graphs`'s
+(:data:`~bask_tpu_torch.utils.graphs.MEDIAN`).
 """
 
 from __future__ import annotations
 
 import math
-from collections import OrderedDict
 
 import torch
 
-from . import trace
+from . import graphs, trace
 
 __all__ = ["geometric_median"]
 
 _CHECK_EVERY = 25
-# key -> None (seen once) or its captured block; at most
-# mcmc._GRAPH_CACHE_MAX keys, the oldest freed first
-_CACHE: "OrderedDict[tuple, _Block | None]" = OrderedDict()
 
 
 def _iteration(X, y, delta, eps: float):
@@ -101,8 +96,6 @@ class _Block:
     advances ``y`` and ``delta`` in place, so replays chain."""
 
     def __init__(self, X, eps: float):
-        from ..parallel import mcmc
-
         self.X = torch.empty_strided(X.shape, X.stride(), dtype=X.dtype, device=X.device)
         self.y = torch.empty(X.shape[1:], dtype=X.dtype, device=X.device)
         self.delta = torch.empty((), dtype=X.dtype, device=X.device)
@@ -117,7 +110,7 @@ class _Block:
             self.delta.copy_(delta)
 
         with trace.span("span.gp.median_capture"):
-            self.graph, _ = mcmc._capture_step(body, body, None, X.device, ())
+            self.graph = graphs.capture(body, body, X.device)
 
     def __call__(self, X, y, delta, eps: float):
         """One replayed block: a call's first block loads ``X``, ``y`` and
@@ -133,27 +126,16 @@ class _Block:
 
 def _key(X, eps: float) -> tuple:
     """Everything a block's graph fixes at capture besides its values."""
-    from ..parallel import mcmc
-
     return (tuple(X.shape), X.stride(), X.dtype, str(X.device), float(eps),
-            *mcmc._matmul_mode())
+            *graphs.matmul_mode())
 
 
 def _graphed(X, eps: float, max_iter: int):
-    """The median through its key's graph: eager and remembered on the
-    key's first call, captured on the second, replayed after."""
-    from ..parallel import mcmc
-
-    key = _key(X, eps)
-    if key not in _CACHE:
-        _CACHE[key] = None
-        while len(_CACHE) > mcmc._GRAPH_CACHE_MAX:
-            _CACHE.popitem(last=False)
-        return _eager(X, eps, max_iter)
-    _CACHE.move_to_end(key)
-    block = _CACHE[key]
+    """The median through its key's graph: eager on the key's first call,
+    captured on the second, replayed after."""
+    block = graphs.MEDIAN.entry(_key(X, eps), lambda: _Block(X, float(eps)))
     if block is None:
-        block = _CACHE[key] = _Block(X, float(eps))
+        return _eager(X, eps, max_iter)
     y = _weiszfeld(X, eps, max_iter, block)
     # a result the eager tail did not replace is the graph's own buffer
     return y.clone() if y is block.y else y

@@ -26,9 +26,10 @@ Off and outside a profiler session, ``span()`` and ``wait()`` return one
 shared no-op object: no clock is read, no range is opened and nothing is
 allocated.
 
-Names are ``span.<layer>.<phase>`` (:data:`NAMES`). The chain's graph
-counts (``parallel.mcmc.graph_stats``) and the kernel wrappers'
-``.launches`` stay with the modules that own them.
+Names are ``span.<layer>.<phase>`` (:data:`NAMES`). The chain and the
+median open their capture and replay spans around :mod:`.graphs`, which
+keeps the kernels' ``.launches`` counts; ``parallel.mcmc.graph_stats``
+counts the chain's graphs.
 """
 
 from __future__ import annotations

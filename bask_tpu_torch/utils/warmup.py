@@ -8,7 +8,8 @@ processes), the CUDA graphs of the chain step for each padding bucket
 (:mod:`bask_tpu_torch.parallel.mcmc`; one capture serves every n in a
 bucket) and of the consensus's geometric median, the cuBLAS/cuSOLVER
 handles and the caching allocator's blocks.
-The graphs are cached at module level and keyed by value and by the
+The graphs are cached at module level (:mod:`bask_tpu_torch.utils.graphs`)
+and keyed by value and by the
 identity of the priors (guessed priors are module-level functions,
 resolved SciPy and tabulated priors are cached across models), so a
 throwaway clone sharing ``opt``'s kernel, priors and acquisition fills the
@@ -135,6 +136,7 @@ def warmup_optimizer(
             # the warm tell's consensus may be its median's first call at
             # this shape, which runs eagerly; a second call captures the
             # median's graph, so the loop's first warm tell replays it
-            # (utils/median.py; a CPU median always runs eagerly)
+            # (utils/graphs.py: MEDIAN captures on a key's second call; a
+            # CPU median always runs eagerly)
             geometric_median(clone.gp._tensor(clone.gp.chain_))
     return buckets

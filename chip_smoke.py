@@ -1181,14 +1181,14 @@ MUFU_PER_S = 16 * 132 * 1.98e9
 def k5_costs(B, m, M, n_real, d, R, n_bytes):
     """K5's bounds for one call, computed from its shapes (none is
     measured): the least time with the depth-d products on the tensor
-    cores (``bound_ms``, by ``pathwise_values.k5_bound_ms``), PR 10's
+    cores (``bound_ms``, by ``scripts/kernel_costs.k5_bound_ms``), the first design's
     all-FP32 count (``bound_ms_f32``) and the modelled MUFU floor of the
     transcendentals (``mufu_floor_ms``)."""
-    from bask_tpu_torch.ops import pathwise_values as pv
+    costs = _load_script("kernel_costs")
 
-    ops = pv.k5_operations(B, m, M, n_real, d, R)
-    products, other = pv.k5_operations_split(B, m, M, n_real, d, R)
-    bound, by = pv.k5_bound_ms(B, m, M, n_real, d, R, n_bytes)
+    ops = costs.k5_operations(B, m, M, n_real, d, R)
+    products, other = costs.k5_operations_split(B, m, M, n_real, d, R)
+    bound, by = costs.k5_bound_ms(B, m, M, n_real, d, R, n_bytes)
     f32_bound, f32_by = bound_ms(n_bytes, ops)
     transcendental = float(B) * m * (M + 2 * n_real)
     return {"operations": ops, "tensor_core_operations": products, "other_operations": other,
@@ -2620,11 +2620,12 @@ def _replay_kernels(parts, move="de"):
     """The device operations of one replay of the graph of ``move`` of
     this chain's configuration: (count, kernel names)."""
     from bask_tpu_torch.parallel import mcmc
+    from bask_tpu_torch.utils import graphs
 
     _, graph, pos, _ = parts
     key = mcmc._entry_key(graph, *pos.shape, pos.dtype, pos.device)
-    branch = mcmc._GRAPH_CACHE[key].branches[mcmc._branch_key(move, 2.0)]
-    ops, _ = _profiled_retry(branch.graph.replay)
+    branch = graphs.CHAIN[key].branches[mcmc._branch_key(move, 2.0)]
+    ops, _ = _profiled_retry(branch.step.graph.replay)
     return len(ops), sorted({e.name for e in ops})
 
 
@@ -2885,11 +2886,11 @@ def _per_replay(parts):
     """{kernel: launches per replay} of each move of this chain's graphs
     under the current route (the counts each capture recorded)."""
     from bask_tpu_torch.parallel import mcmc
+    from bask_tpu_torch.utils import graphs
 
     _, graph, pos, _ = parts
-    entry = mcmc._GRAPH_CACHE[mcmc._entry_key(graph, *pos.shape, pos.dtype, pos.device)]
-    names = {id(f): k for k, f in _kernel_counters().items()}
-    return {move[0]: {names[id(f)]: n for f, n in zip(mcmc._launch_counters(), br.launches)}
+    entry = graphs.CHAIN[mcmc._entry_key(graph, *pos.shape, pos.dtype, pos.device)]
+    return {move[0]: {k: dict(br.step.launches).get(f, 0) for k, f in _kernel_counters().items()}
             for move, br in entry.branches.items()}
 
 
@@ -3317,7 +3318,8 @@ def k6_check_and_time(dev, dtype, shape, rows, seed, check_rows=None, plain_rows
         plain_ms = cuda_ms(lambda: wv.warp_plain(X, la, lb), reps=3)
     item = X.element_size()
     n_bytes = item * (X.numel() + la.numel() + lb.numel() + entries)
-    bound, by = bound_ms(n_bytes, wv.k6_operations(entries), FLOPS[dtype])
+    operations = _load_script("kernel_costs").k6_operations(entries)
+    bound, by = bound_ms(n_bytes, operations, FLOPS[dtype])
     tol = WARP_TOL[dtype]
     return {"dtype": dtype, "shape": list(out_shape), "x_shape": list(X.shape),
             "checked_rows": "all" if check_rows is None else list(check_rows),
@@ -3327,7 +3329,7 @@ def k6_check_and_time(dev, dtype, shape, rows, seed, check_rows=None, plain_rows
             "other_device_ops": foreign,
             "ms": ms, "alone_ms": None if alone is None else alone / 1e3, "plain_ms": plain_ms,
             "plain_in_chunks_of_rows": plain_rows, "bound_ms": bound, "bound_by": by,
-            "bytes": n_bytes, "operations": wv.k6_operations(entries), "library_ms": None,
+            "bytes": n_bytes, "operations": operations, "library_ms": None,
             "ok": finite and err <= tol and pdf_err <= PDF_RTOL[dtype] and control_err > tol
             and 0 < ops_per_call <= 1 and not foreign}
 
@@ -3391,7 +3393,7 @@ def k7_check_and_time(dev, dtype, m, seed, check_limit=8192, chunk=4096, plain=T
     entries = m * N_DIM
     n_bytes = Z.element_size() * (2 * entries + la.numel() + lb.numel())
     steps = wv.full_steps(Z.dtype)
-    ops = wv.k7_operations(entries, steps)
+    ops = _load_script("kernel_costs").k7_operations(entries, steps)
     bound, by = bound_ms(n_bytes, ops, FLOPS[dtype])
     tol = UNWARP_TOL[dtype]
     return {"dtype": dtype, "shape": [m, N_DIM], "steps": steps,

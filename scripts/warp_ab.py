@@ -46,6 +46,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as cs  # noqa: E402
+import kernel_costs  # noqa: E402  (beside this script)
 
 # (kernel, shape of X or Z, rows of log-parameters, seed)
 LAUNCHES = [("K6", (cs.BATCH_CAND, cs.N_DIM), (cs.BATCH_K,), 23),
@@ -139,9 +140,9 @@ def bound(kernel, X, la, lb, entries):
 
     if kernel == "K6":
         n_bytes = 4 * (X.numel() + la.numel() + lb.numel() + entries)
-        return cs.bound_ms(n_bytes, wv.k6_operations(entries))
+        return cs.bound_ms(n_bytes, kernel_costs.k6_operations(entries))
     n_bytes = 4 * (2 * entries + la.numel() + lb.numel())
-    return cs.bound_ms(n_bytes, wv.k7_operations(entries, wv.full_steps(X.dtype)))
+    return cs.bound_ms(n_bytes, kernel_costs.k7_operations(entries, wv.full_steps(X.dtype)))
 
 
 def main() -> int:

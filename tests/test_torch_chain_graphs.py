@@ -23,6 +23,9 @@ from bask_tpu_torch.ops import gram, linalg  # noqa: E402
 from bask_tpu_torch.ops import kernels as bk  # noqa: E402
 from bask_tpu_torch.parallel import mcmc  # noqa: E402
 from bask_tpu_torch.parallel.mesh import Mesh  # noqa: E402
+from bask_tpu_torch.utils import graphs  # noqa: E402
+
+from torch_graph_stand_in import stand_in_graphs  # noqa: E402,F401
 
 
 def _kernel(nu=2.5, d=3):
@@ -107,6 +110,26 @@ def test_each_keyed_field_misses(fusable_on_cpu, monkeypatch):
     assert len(set(moves)) == len(moves) and mcmc._branch_key("de", 2) == moves[0]
 
 
+def test_route_key_holds_each_routing_switch(monkeypatch):
+    """``linalg.route_key``, the part of the key that the ops layer owns,
+    misses when any of the three routing decisions changes, and holds K4's
+    walkers per unit at a routed shape."""
+    base = linalg.route_key(128, 3)
+    other = {}
+    with monkeypatch.context() as m:
+        m.setattr(gram, "LOWER_GRAM", "on")
+        other["LOWER_GRAM"] = linalg.route_key(128, 3)
+    with monkeypatch.context() as m:
+        m.setitem(gram._K4_ROUTE, (128, 3), 2)
+        other["K4 route"] = linalg.route_key(128, 3)
+    with monkeypatch.context() as m:
+        m.setattr(linalg, "FAST_CHOLESKY", "off")
+        other["FAST_CHOLESKY"] = linalg.route_key(128, 3)
+    assert len({base, *other.values()}) == 4
+    assert linalg.route_key(128, 3) == base
+    assert linalg.route_key(512, 15)[1] == gram._K4_ROUTE[(512, 15)]
+
+
 def test_configurations_that_stay_eager(fusable_on_cpu):
     """mesh=, row_mesh, a host-adapter prior and a kernel outside the
     fused family give no graph; the rest do."""
@@ -135,34 +158,19 @@ def test_a_graph_runs_on_a_card_only():
         assert chain.shape == (2, 8, 2)
     finally:
         mcmc.CHAIN_GRAPHS = "on"
-    mcmc._GRAPH_CACHE.clear()
-
-
-def _stand_in_capture(captured):
-    """``_capture_step`` without a card: warm as on the card, then a
-    "graph" whose replay runs the captured step eagerly on the entry's
-    buffers, and the launches one step counts."""
-
-    def capture(body, warm, pool, device, counters):
-        for _ in range(mcmc._WARM_STEPS):
-            warm()
-        captured.append(body)
-        return type("Replay", (), {"replay": staticmethod(body)})(), tuple(0 for _ in counters)
-
-    return capture
+    graphs.CHAIN.clear()
 
 
 @pytest.mark.parametrize("warp", [False, True])
-def test_graph_machinery_replays_the_eager_chain(fusable_on_cpu, monkeypatch, warp):
+def test_graph_machinery_replays_the_eager_chain(fusable_on_cpu, stand_in_graphs, monkeypatch,
+                                                 warp):
     """On the CPU, with a stand-in capture that replays the captured step
     eagerly: a fit's chain through the graph path (static data buffers,
     n_real as a tensor, randoms drawn into the branches' buffers, the
     state written back in place, demix switching branches) equals the
     eager chain bit for bit, and the next sample() of the same model, at
     another n in the bucket, captures nothing new."""
-    captured = []
-    monkeypatch.setattr(mcmc, "_capture_step", _stand_in_capture(captured))
-    monkeypatch.setattr(mcmc, "_GRAPH_CACHE", type(mcmc._GRAPH_CACHE)())
+    captured = stand_in_graphs
     chains = {}
     for mode in ("off", "on"):
         monkeypatch.setattr(mcmc, "CHAIN_GRAPHS", mode)
@@ -180,21 +188,19 @@ def test_graph_machinery_replays_the_eager_chain(fusable_on_cpu, monkeypatch, wa
 
 
 def test_flipping_the_switch_captures_anew_and_replays_the_eager_off_chain(
-        fusable_on_cpu, monkeypatch):
+        fusable_on_cpu, stand_in_graphs, monkeypatch):
     """Through the graph machinery on the CPU (a stand-in capture): a chain
     at "off" equals the eager "off" chain bit for bit, and flipping the
     switch between two ``sample`` calls captures a second configuration."""
-    captured = []
-    monkeypatch.setattr(mcmc, "_capture_step", _stand_in_capture(captured))
-    monkeypatch.setattr(mcmc, "_GRAPH_CACHE", type(mcmc._GRAPH_CACHE)())
+    captured = stand_in_graphs
     rng = np.random.RandomState(0)
     X = rng.uniform(size=(100, 2))
     y = np.sin(3 * X[:, 0])
     kernel = _kernel(d=2)
 
-    def chain(graphs, value):
+    def chain(mode, value):
         monkeypatch.setattr(linalg, "FAST_CHOLESKY", value)
-        monkeypatch.setattr(mcmc, "CHAIN_GRAPHS", graphs)
+        monkeypatch.setattr(mcmc, "CHAIN_GRAPHS", mode)
         gp = BayesGPR(kernel, random_state=0, device="cpu", optimizer=None)
         gp.fit(X, y, n_desired_samples=4 * 8, n_walkers_per_thread=8, n_burnin=0,
                warn_rhat=None, progress=False)
@@ -204,6 +210,6 @@ def test_flipping_the_switch_captures_anew_and_replays_the_eager_off_chain(
     graphed = chain("on", "off")
     np.testing.assert_array_equal(graphed[0], eager[0])
     assert graphed[1] == eager[1]
-    assert len(mcmc._GRAPH_CACHE) == 1
+    assert len(graphs.CHAIN) == 1
     chain("on", "auto")
-    assert len(mcmc._GRAPH_CACHE) == 2 and len(captured) == 2
+    assert len(graphs.CHAIN) == 2 and len(captured) == 2

@@ -1441,9 +1441,9 @@ def _median_counts():
 @pytest.fixture
 def median_cache(monkeypatch):
     """An empty cache of the median's graphs; tracing on."""
-    from collections import OrderedDict
+    from bask_tpu_torch.utils import graphs
 
-    monkeypatch.setattr(median, "_CACHE", OrderedDict())
+    monkeypatch.setattr(graphs, "MEDIAN", graphs.Cache(first_call=False))
     trace.reset()
     trace.enable()
     try:

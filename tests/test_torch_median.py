@@ -8,8 +8,6 @@ first call eager, its second captures, later ones only replay, each the
 eager loop bit for bit with its stop checks. The replays on the card are
 held bit-equal to the eager loop in ``tests/test_torch_cuda.py``."""
 
-from collections import OrderedDict
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,8 +16,10 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from bask_tpu.utils import median as jmedian  # noqa: E402
-from bask_tpu_torch.parallel import mcmc  # noqa: E402
+from bask_tpu_torch.utils import graphs as tgraphs  # noqa: E402
 from bask_tpu_torch.utils import median, trace  # noqa: E402
+
+from torch_graph_stand_in import stand_in_graphs  # noqa: E402,F401
 
 
 def _chain(n, d, seed=0, offset=0.0):
@@ -77,29 +77,14 @@ def test_the_cases_exercise_what_they_name():
         assert (moved.abs().max() > 0.05) if k == 1 else (moved == 0).all()
 
 
-def _stand_in_capture(captured):
-    """``mcmc._capture_step`` without a card: warm as on the card, then a
-    "graph" whose replay runs the captured block eagerly."""
-
-    def capture(body, warm, pool, device, counters):
-        for _ in range(mcmc._WARM_STEPS):
-            warm()
-        captured.append(body)
-        return type("Replay", (), {"replay": staticmethod(body)})(), ()
-
-    return capture
-
-
 @pytest.fixture
-def graphs(monkeypatch):
-    """An empty median cache and a stand-in capture; the captured bodies."""
-    captured = []
-    monkeypatch.setattr(mcmc, "_capture_step", _stand_in_capture(captured))
-    monkeypatch.setattr(median, "_CACHE", OrderedDict())
+def graphs(stand_in_graphs):
+    """The shared stand-in capture (an empty median cache), traced; the
+    captured bodies."""
     trace.reset()
     trace.enable()
     try:
-        yield captured
+        yield stand_in_graphs
     finally:
         trace.disable()
         trace.reset()
@@ -137,13 +122,13 @@ def test_graph_path_is_the_eager_loop_bit_for_bit(graphs, case, max_iter):
 
 
 def test_each_key_captures_once_and_the_oldest_is_freed(graphs, monkeypatch):
-    monkeypatch.setattr(mcmc, "_GRAPH_CACHE_MAX", 2)
+    monkeypatch.setattr(tgraphs, "MAX_ENTRIES", 2)
     a, b, c = (torch.as_tensor(_chain(40, d, d)) for d in (3, 4, 5))
     for X in (a, a, b, b, a):
         median._graphed(X, 1e-5, 50)
     assert len(graphs) == 2  # a's and b's
     median._graphed(a, 1e-3, 50)  # another eps is another key
-    assert len(graphs) == 2 and list(median._CACHE) == [_key(a, 1e-5), _key(a, 1e-3)]
+    assert len(graphs) == 2 and list(tgraphs.MEDIAN) == [_key(a, 1e-5), _key(a, 1e-3)]
     median._graphed(c, 1e-5, 50)
     median._graphed(b, 1e-5, 50)  # b was freed: seen anew, eager
     assert len(graphs) == 2
@@ -166,7 +151,7 @@ def test_a_matmul_setting_is_another_key(graphs):
     before = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("high")
     try:
-        assert median._key(X, 1e-5) == _key(X, 1e-5) not in median._CACHE
+        assert median._key(X, 1e-5) == _key(X, 1e-5) not in tgraphs.MEDIAN
         median._graphed(X, 1e-5, 50)
         assert len(graphs) == 1
         assert torch.equal(median._graphed(X, 1e-5, 50), median._eager(X, 1e-5, 50))
@@ -179,5 +164,5 @@ def test_cpu_tensors_always_run_eagerly(graphs):
     X = torch.as_tensor(_chain(100, 17))
     for _ in range(3):
         median.geometric_median(X)
-    assert graphs == [] and not median._CACHE
+    assert graphs == [] and not tgraphs.MEDIAN
     assert _counts()[:2] == (0, 0)

@@ -127,16 +127,6 @@ def test_wrapper_is_the_plain_version_on_the_cpu():
     assert pv.pathwise_values.launches == 0
 
 
-def test_operation_count():
-    """The count of the source note: 2d + 4 per (query, feature) pair and
-    2d + 8 per (query, point) pair at one column, 2 more a column; 1.22e12
-    at the batch ask with its 1,000 real points."""
-    assert pv.k5_operations(1, 1, 1, 0, 15) == 34
-    assert pv.k5_operations(1, 1, 0, 1, 15) == 38
-    assert pv.k5_operations(1, 1, 1, 1, 15, r=3) == 34 + 38 + 8
-    assert abs(pv.k5_operations(256, 65536, 1024, 1000, 15) / 1.2224e12 - 1) < 1e-3
-
-
 def _spec(nu, has_const=True, has_white=True, n_ls=2):
     return FusedSpec(nu=nu, n_ls=n_ls, has_const=has_const, has_white=has_white)
 

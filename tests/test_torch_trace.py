@@ -22,6 +22,8 @@ from bask_tpu_torch.ops import kernels as bk  # noqa: E402
 from bask_tpu_torch.parallel import mcmc  # noqa: E402
 from bask_tpu_torch.utils import median, trace  # noqa: E402
 
+from torch_graph_stand_in import stand_in_graphs  # noqa: E402,F401
+
 PACKAGE = Path(__file__).resolve().parents[1] / "bask_tpu_torch"
 
 
@@ -205,13 +207,11 @@ def test_each_wrapped_readback_counts_one_wait(traced, readback, waits):
     assert [r["name"] for r in snap["records"]].count("span.wait") == waits
 
 
-def test_median_spans_open_only_on_a_graphed_call(traced, monkeypatch):
+def test_median_spans_open_only_on_a_graphed_call(traced, stand_in_graphs):
     """An eager CPU median opens neither median span, however often its key
     comes; through the graph path (a stand-in capture whose replay runs the
     block eagerly) the key's second call opens one capture, and each replayed
     call one replay with the eager loop's single stop check (max_iter 26)."""
-    from collections import OrderedDict
-
     X = torch.as_tensor(np.random.RandomState(0).randn(40, 3))
     for _ in range(3):
         median.geometric_median(X, max_iter=26)
@@ -219,12 +219,6 @@ def test_median_spans_open_only_on_a_graphed_call(traced, monkeypatch):
     assert spans["span.wait"]["count"] == 3
     assert not {"span.gp.median_capture", "span.gp.median_replay"} & set(spans)
 
-    def capture(body, warm, pool, device, counters):
-        warm()
-        return type("Replay", (), {"replay": staticmethod(body)})(), ()
-
-    monkeypatch.setattr(mcmc, "_capture_step", capture)
-    monkeypatch.setattr(median, "_CACHE", OrderedDict())
     counts = []
     for _ in range(3):
         trace.reset()
